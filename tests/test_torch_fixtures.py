@@ -1,0 +1,95 @@
+"""The committed fixtures that chip_smoke.py decodes on the card, and the
+port's independence from JAX and PIL.
+
+The manifest's hashes must be PIL's decode of each file here; its fault
+expectations must be what the reference decoder raises; and importing
+tpujpeg_torch and decoding on the CPU must load neither jax nor PIL."""
+
+import hashlib
+import json
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from corpus import pil_decode
+
+from tpujpeg import bitstream as ref_bitstream
+from tpujpeg.kernels import wavefront_pallas as wp
+
+import tpujpeg_torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FIXTURES = os.path.join(ROOT, "tpujpeg_torch", "fixtures")
+with open(os.path.join(FIXTURES, "manifest.json")) as _f:
+    MANIFEST = json.load(_f)
+
+
+def _read(name):
+    with open(os.path.join(FIXTURES, MANIFEST["fixtures"][name]["file"]), "rb") as f:
+        return f.read()
+
+
+@pytest.mark.parametrize("name", sorted(MANIFEST["fixtures"]))
+def test_manifest_hash_is_pil_decode(name):
+    entry = MANIFEST["fixtures"][name]
+    data = _read(name)
+    assert hashlib.sha256(data).hexdigest() == entry["file_sha256"]
+    img = pil_decode(data)
+    assert list(img.shape) == entry["shape"]
+    assert hashlib.sha256(img.tobytes()).hexdigest() == entry["pil_sha256"]
+
+
+@pytest.mark.parametrize("fault", MANIFEST["faults"], ids=lambda f: f"{f['fixture']}-fill{f['fill']}")
+def test_manifest_faults_are_what_the_reference_raises(fault):
+    data = _read(fault["fixture"])
+    ref = [ref_bitstream.parse(data) for _ in range(fault["batch"])]
+    port = [tpujpeg_torch.bitstream.parse(data) for _ in range(fault["batch"])]
+    for jpegs in (ref, port):
+        scan = jpegs[fault["member"]].scans[0]
+        scan.data = bytes([fault["fill"]]) * len(scan.data)
+    want_rgb, want = wp.decode_batch_to_rgb(ref)
+    got_rgb, got = tpujpeg_torch.decode_batch_to_rgb(port, device="cpu")
+    expected = {fault["member"]: fault["error"]}
+    assert {i: type(e).__name__ for i, e in want.items()} == expected
+    assert {i: type(e).__name__ for i, e in got.items()} == expected
+    np.testing.assert_array_equal(got_rgb.numpy(), np.asarray(want_rgb))
+
+
+def test_port_imports_neither_jax_nor_pil():
+    code = (
+        "import sys, hashlib, json\n"
+        "import tpujpeg_torch\n"
+        "m = json.load(open('tpujpeg_torch/fixtures/manifest.json'))['fixtures']['420_odd']\n"
+        "out = tpujpeg_torch.decode(open('tpujpeg_torch/fixtures/' + m['file'], 'rb').read(), device='cpu')\n"
+        "assert hashlib.sha256(out.tobytes()).hexdigest() == m['pil_sha256']\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'PIL', 'tpujpeg'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr[-2000:]
+
+
+def _python_files():
+    pkg = os.path.join(ROOT, "tpujpeg_torch")
+    for dirpath, _dirs, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def test_no_jax_or_pil_import_in_port_sources():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|PIL|tpujpeg)\b", re.M)
+    offenders = []
+    for path in _python_files():
+        with open(path) as f:
+            if pattern.search(f.read()):
+                offenders.append(os.path.relpath(path, ROOT))
+    assert not offenders

@@ -1,0 +1,80 @@
+"""Write the committed JPEG fixtures and their manifest.
+
+The card's host has neither PIL nor JAX, so the files that
+``chip_smoke.py`` decodes, and the PIL (libjpeg-turbo) decode hashes it
+holds the port to, are made where PIL is installed and committed:
+
+    python tpujpeg_torch/fixtures/make_fixtures.py
+
+Each file is a ``tests/corpus.py`` call; ``manifest.json`` records the
+call, the decoded shape and the sha256 of PIL's decoded bytes.
+``tests/test_torch_fixtures.py`` checks the manifest against PIL.
+
+``faults`` in the manifest names the corruptions ``chip_smoke.py``
+injects into one member of a batch, with the exception class the
+reference decoder raises for it (checked by the same test).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(os.path.dirname(HERE))
+
+# name -> make_jpeg keyword arguments. "420_2048" is bench.py's corpus
+# shape (2048^2, q85, 4:2:0, restart every 4 MCUs, first seed).
+FIXTURES = {
+    "420_2048": dict(w=2048, h=2048, seed=7, quality=85, subsampling=2, restart_blocks=4),
+    "420_odd": dict(w=129, h=65, seed=9, quality=85, subsampling=2, restart_blocks=3),
+    "422": dict(w=512, h=384, seed=11, quality=85, subsampling=1, restart_blocks=4),
+    "444": dict(w=512, h=384, seed=12, quality=85, subsampling=0, restart_blocks=4),
+    "gray": dict(w=512, h=384, seed=13, quality=85, mode="L", restart_blocks=4),
+}
+
+# One member of a batch of `batch` copies of `fixture` gets its scan
+# payload (restart markers included) overwritten with `fill` bytes; the
+# parsed restart offsets stay, so the lanes keep their lengths.
+FAULTS = [
+    dict(fixture="420_odd", batch=3, member=1, fill=0x00, error="JpegHuffmanError"),
+    dict(fixture="420_odd", batch=3, member=2, fill=0xFF, error="JpegHuffmanError"),
+]
+
+
+def call_text(kw) -> str:
+    kw = dict(kw)
+    w, h = kw.pop("w"), kw.pop("h")
+    return f"make_jpeg({w}, {h}, " + ", ".join(f"{k}={v!r}" for k, v in kw.items()) + ")"
+
+
+def main() -> int:
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from corpus import make_jpeg, pil_decode
+
+    entries = {}
+    for name, kw in FIXTURES.items():
+        args = dict(kw)
+        w, h = args.pop("w"), args.pop("h")
+        data = make_jpeg(w, h, **args)
+        with open(os.path.join(HERE, f"{name}.jpg"), "wb") as f:
+            f.write(data)
+        img = pil_decode(data)
+        entries[name] = dict(
+            file=f"{name}.jpg",
+            call=call_text(kw),
+            shape=list(img.shape),
+            file_sha256=hashlib.sha256(data).hexdigest(),
+            pil_sha256=hashlib.sha256(img.tobytes()).hexdigest(),
+        )
+        print(name, len(data), "bytes", img.shape)
+    with open(os.path.join(HERE, "manifest.json"), "w") as f:
+        json.dump(dict(fixtures=entries, faults=FAULTS), f, indent=1)
+        f.write("\n")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

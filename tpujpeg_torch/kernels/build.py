@@ -1,0 +1,149 @@
+"""nvcc build and ctypes binding of the port's CUDA kernels.
+
+``csrc/*.cu`` compile into one shared library with a plain C interface
+(no PyTorch headers, so the build takes seconds), at first use, into
+``tpujpeg_torch/_build/``; the file name carries a hash of the sources
+and flags, so an edit triggers exactly one rebuild (the scheme of
+``tpujpeg/native/build.py``). Every C entry point launches on the stream
+it is given and returns ``cudaGetLastError()``; ``raise_on_error`` turns
+a non-zero code into an exception. Pointers and the stream go in as
+``c_void_p``.
+
+Module state is the library handle and ``LAUNCHES``, the per-kernel
+launch counters the wrappers bump after each launch.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+FLAGS = [ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+LAUNCHES: "collections.Counter[str]" = collections.Counter()
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_int64
+
+# C signatures: name -> argument types (restype is int, a cudaError_t).
+_SIGNATURES = {
+    "tj_wavefront_pixels": [
+        _P, _I, _I,              # bits, W, P
+        _P, _P, _P, _P, _I,      # seg_bits, lane_m, lane_qset, lane_meta, L
+        _P, _P, _P,              # tables, huffval, qsets (natural order)
+        _P, _P, _I, _I, _I, _I,  # blk, comp, B, nq, n_planes, mcus_x
+        _P, _P, _P, _P,          # planes 0..3
+        _P, _P,                  # err, stream
+    ],
+    "tj_upsample_color_h2v2": [
+        _P, _L, _L, _P, _L, _L, _P, _L, _L,  # y, cb, cr: pointer, image stride, row stride
+        _I, _I, _I, _I, _I, _P, _P,          # N, H, W, Hc, Wc, out, stream
+    ],
+    "tj_upsample_color_h2v1": [
+        _P, _L, _L, _P, _L, _L, _P, _L, _L,
+        _I, _I, _I, _I, _I, _P, _P,
+    ],
+    "tj_color_444": [
+        _P, _L, _L, _P, _L, _L, _P, _L, _L,
+        _I, _I, _I, _P, _P,                  # N, H, W, out, stream
+    ],
+}
+
+
+def _sources() -> Sequence[str]:
+    return sorted(glob.glob(os.path.join(_SRC_DIR, "*.cu")) + glob.glob(os.path.join(_SRC_DIR, "*.cuh")))
+
+
+def _nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for src in _sources():
+        with open(src, "rb") as f:
+            h.update(os.path.basename(src).encode() + f.read())
+    return os.path.join(BUILD_DIR, f"libtpujpeg_torch_{h.hexdigest()[:16]}.so")
+
+
+def build(verbose: bool = False) -> str:
+    """Compile csrc/*.cu into the library if it is not built yet; returns
+    its path. With verbose, nvcc's -Xptxas -v report (registers, shared
+    memory, spills per kernel) is printed."""
+    so = library_path()
+    if os.path.exists(so):
+        return so
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.tmp{os.getpid()}"
+    cmd = [_nvcc(), *FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", tmp,
+           *[s for s in _sources() if s.endswith(".cu")]]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{res.stdout}\n{res.stderr}")
+    if verbose:
+        print(res.stdout + res.stderr)
+    os.replace(tmp, so)
+    for old in glob.glob(os.path.join(BUILD_DIR, "libtpujpeg_torch_*.so")):
+        if old != so:
+            try:
+                os.unlink(old)
+            except OSError:
+                pass
+    return so
+
+
+def get_lib() -> ctypes.CDLL:
+    """Load (building first if needed) the kernel library."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def stream_of(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def raise_on_error(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
+
+
+def check_args(name: str, device: torch.device,
+               specs: Sequence[Tuple[torch.Tensor, torch.dtype, int]]) -> None:
+    """Every tensor on `device`, of its dtype and rank, and contiguous."""
+    for i, (t, dtype, ndim) in enumerate(specs):
+        if t.device != device or t.dtype != dtype or t.dim() != ndim or not t.is_contiguous():
+            raise ValueError(
+                f"{name}: argument {i} is {t.dtype}{tuple(t.shape)} on {t.device} "
+                f"(contiguous={t.is_contiguous()}); want contiguous {dtype} rank {ndim} on {device}"
+            )

@@ -1,0 +1,614 @@
+"""Fused baseline decode: restart segments as lanes, Huffman + dequant +
+islow IDCT straight to raster component planes.
+
+Port of the main-path part of ``tpujpeg/kernels/wavefront_pallas.py``:
+the lane planner (``build_block_plan``), the per-lane error mapping
+(``failures_from_err``/``resolve_rgb_errors``) and the
+``_make_kernel(emit="pixels")`` Pallas kernel, which becomes the CUDA
+kernel ``tj_wavefront_pixels`` in ``csrc/wavefront.cu``. Its plain
+version, ``decode_lanes_plain``, is a lane-vectorized torch state
+machine with the same steps as the Pallas kernel; the wrapper
+``decode_lanes_to_planes`` takes it only for tensors on the CPU.
+
+The TPU layout does not carry over: lanes are a flat [L] axis (no
+[G, 8, K] sublane groups), each lane reads its own row of words from
+device memory, and the kernel stores u8 samples at their raster
+positions, so there is no assembly pass. The planner still keeps the
+reference's scope (row width rule, ``MAX_WORDS``, ``MAX_QSETS``, one
+table set per batch) so that both decoders accept and reject the same
+batches.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .. import transform as T
+from ..host import (
+    DEFAULT_CONFIG,
+    DecodeConfig,
+    JpegHuffmanError,
+    JpegSyntaxError,
+    JpegTruncatedError,
+    JpegUnsupportedError,
+    bitstream,
+    native_entropy,
+)
+from . import build
+
+MAX_WORDS = 512   # per-lane row cap, the reference's (lifted by a later slice)
+MAX_QSETS = 8     # distinct quantizer sets per batch, the reference's
+
+_ERR_BADCODE = 1
+_ERR_RUN = 2
+_ERR_TRUNC = 4
+
+# Where each unsupported stream shape will be handled.
+_LATER_NORST = "marker-free and oversize-segment streams arrive with the marker-free slice"
+_LATER_PROG = "progressive streams arrive with the progressive slice"
+_LATER_STAGED = "arrives with the staged coefficient path"
+
+
+@dataclasses.dataclass(frozen=True)
+class CanonTable:
+    """Canonical decode constants for one Huffman table (T.81 F.2.2.3):
+    maxcode / valoffset per code length and the symbol list."""
+
+    maxcode: Tuple[int, ...]    # [17], -1 where no codes
+    valoffset: Tuple[int, ...]  # [17]
+    huffval: Tuple[int, ...]    # [256], zero padded
+
+    @staticmethod
+    def from_spec(spec) -> "CanonTable":
+        maxcode = [-1] * 17
+        valoffset = [0] * 17
+        code = 0
+        k = 0
+        for l in range(1, 17):
+            n = int(spec.counts[l - 1])
+            if n:
+                valoffset[l] = k - code
+                code += n
+                k += n
+                maxcode[l] = code - 1
+            code <<= 1
+        hv = [int(v) for v in spec.values] + [0] * (256 - len(spec.values))
+        return CanonTable(tuple(maxcode), tuple(valoffset), tuple(hv))
+
+
+@dataclasses.dataclass(frozen=True)
+class ImageGeom:
+    """The frame and first-scan geometry that places a lane's blocks."""
+
+    frame: object
+    interleaved: bool
+    comp_indices: Tuple[int, ...]
+    restart_interval: int
+
+    @classmethod
+    def of(cls, jpeg) -> "ImageGeom":
+        s = jpeg.scans[0]
+        return cls(jpeg.frame, s.interleaved, tuple(s.comp_indices), s.restart_interval)
+
+
+@dataclasses.dataclass
+class LanePlan:
+    """One uniform batch as flat lanes (one lane per restart segment)."""
+
+    bits: torch.Tensor       # int32[L, W] big-endian words, 0xFF padded
+    seg_bits: torch.Tensor   # int32[L] destuffed segment length in bits
+    lane_m: torch.Tensor     # int32[L] MCUs in the lane
+    lane_qset: torch.Tensor  # int32[L] index into qsets
+    lane_meta: torch.Tensor  # int32[L, 3] (image, first MCU, MCUs)
+    tables: torch.Tensor     # int32[B, 2, 34] dc/ac: maxcode[17] | valoffset[17]
+    huffval: torch.Tensor    # uint8[B, 2, 256] dc/ac symbol lists
+    qsets: torch.Tensor      # int32[nq, B, 64] zigzag-order quantizers
+    blk_tables: Tuple[Tuple[int, CanonTable, CanonTable], ...]  # (ci, dc, ac) per block
+    n_mcus: int              # most MCUs of any lane
+    n_images: int
+    img_qset: Tuple[int, ...]
+
+    @property
+    def n_lanes(self) -> int:
+        return int(self.lane_m.shape[0])
+
+    @property
+    def n_words(self) -> int:
+        return int(self.bits.shape[1])
+
+    @property
+    def blocks_per_mcu(self) -> int:
+        return len(self.blk_tables)
+
+    def to(self, device) -> "LanePlan":
+        return dataclasses.replace(
+            self,
+            **{
+                f.name: getattr(self, f.name).to(device)
+                for f in dataclasses.fields(self)
+                if isinstance(getattr(self, f.name), torch.Tensor)
+            },
+        )
+
+
+def _table_tensors(blk_tables) -> Tuple[torch.Tensor, torch.Tensor]:
+    tables = torch.tensor(
+        [
+            [list(t.maxcode) + list(t.valoffset) for t in (dct, act)]
+            for _ci, dct, act in blk_tables
+        ],
+        dtype=torch.int32,
+    )
+    huffval = torch.tensor(
+        [[list(dct.huffval), list(act.huffval)] for _ci, dct, act in blk_tables],
+        dtype=torch.uint8,
+    )
+    return tables, huffval
+
+
+def _segment_mcus(frame, scan) -> int:
+    if scan.interleaved:
+        return frame.mcus_x * frame.mcus_y
+    c0 = frame.components[scan.comp_indices[0]]
+    return c0.width_blocks * c0.height_blocks
+
+
+def build_block_plan(jpegs: Sequence) -> LanePlan:
+    """Flat lane plan for a uniform batch of parsed baseline JPEGs.
+
+    Raises JpegUnsupportedError on exactly the batches the reference's
+    fused path rejects, in the reference's order: progressive, mixed
+    geometry, more than one scan, a non-interleaved multi-component
+    scan, mixed Huffman tables, a segment over MAX_WORDS words, and more
+    than MAX_QSETS quantizer sets."""
+    if not jpegs:
+        raise JpegUnsupportedError("empty batch")
+    f0 = jpegs[0].frame
+    key0 = (f0.height, f0.width, tuple((c.h, c.v) for c in f0.components))
+
+    seg_rows: List[Tuple[object, int]] = []
+    lane_meta: List[np.ndarray] = []
+    blk_tables: Optional[Tuple] = None
+    canon: Dict[bytes, CanonTable] = {}
+    max_words = 0
+    max_mcus = 0
+    qset_index: Dict[Tuple, int] = {}
+    qset_values: List[np.ndarray] = []
+    img_qset: List[int] = []
+
+    def table(spec) -> CanonTable:
+        key = spec.counts.tobytes() + spec.values.tobytes()
+        if key not in canon:
+            canon[key] = CanonTable.from_spec(spec)
+        return canon[key]
+
+    for img_i, jpeg in enumerate(jpegs):
+        frame = jpeg.frame
+        if frame.progressive:
+            raise JpegUnsupportedError(f"baseline only: {_LATER_PROG}")
+        key = (frame.height, frame.width, tuple((c.h, c.v) for c in frame.components))
+        if key != key0:
+            raise JpegUnsupportedError("mixed geometry in one batch: batch buckets arrive later")
+        if len(jpeg.scans) != 1:
+            raise JpegUnsupportedError(f"one scan only: multi-scan {_LATER_STAGED}")
+        scan = jpeg.scans[0]
+        if not scan.interleaved and frame.n_components != 1:
+            raise JpegUnsupportedError(
+                f"non-interleaved multi-component scan {_LATER_STAGED}"
+            )
+
+        tables: List[Tuple[int, CanonTable, CanonTable]] = []
+        pairs = (
+            list(zip(scan.comp_indices, scan.dc_ids, scan.ac_ids))
+            if scan.interleaved
+            else [(scan.comp_indices[0], scan.dc_ids[0], scan.ac_ids[0])]
+        )
+        for ci, dc_id, ac_id in pairs:
+            c = frame.components[ci]
+            dk, ak = (0, dc_id), (1, ac_id)
+            if dk not in scan.huff or ak not in scan.huff:
+                raise JpegSyntaxError("missing Huffman table")
+            n_blk = c.h * c.v if scan.interleaved else 1
+            tables += [(ci, table(scan.huff[dk]), table(scan.huff[ak]))] * n_blk
+        tables_t = tuple(tables)
+        if blk_tables is None:
+            blk_tables = tables_t
+        elif blk_tables != tables_t:
+            raise JpegUnsupportedError(
+                f"mixed Huffman tables in one batch {_LATER_STAGED}"
+            )
+
+        qkey = tuple(jpeg.qtables[frame.components[ci].tq].tobytes() for ci, _d, _a in tables)
+        idx = qset_index.get(qkey)
+        if idx is None:
+            idx = len(qset_index)
+            qset_index[qkey] = idx
+            qset_values.append(
+                np.stack([jpeg.qtables[frame.components[ci].tq] for ci, _d, _a in tables])
+            )
+        img_qset.append(idx)
+
+        total_mcus = _segment_mcus(frame, scan)
+        ri = scan.restart_interval or total_mcus
+        n_seg = -(-total_mcus // ri)
+        if len(scan.rst_offsets) + 1 < n_seg:
+            raise JpegTruncatedError("missing restart segments")
+        if scan.destuffed is not None and scan.dseg_starts is not None and len(
+            scan.dseg_starts
+        ) >= n_seg + 1:
+            ds = scan.dseg_starts
+            stuffed = ds[1 : n_seg + 1] - ds[:n_seg]
+        else:
+            # Stuffed lengths bound the destuffed row size.
+            ro = np.asarray(scan.rst_offsets[: n_seg - 1], dtype=np.int64)
+            stuffed = np.concatenate([ro, [len(scan.data)]]) - np.concatenate([[0], ro + 2])
+        seg_rows.append((scan, n_seg))
+        fm = np.arange(n_seg, dtype=np.int64) * ri
+        nm = np.minimum(ri, total_mcus - fm).astype(np.int32)
+        lane_meta.append(
+            np.stack([np.full(n_seg, img_i, np.int32), fm.astype(np.int32), nm], axis=1)
+        )
+        max_words = max(max_words, int(stuffed.max()) // 4 + 2)
+        max_mcus = max(max_mcus, int(nm.max()))
+
+    if max_words > MAX_WORDS:
+        raise JpegUnsupportedError(
+            f"segment too long ({max_words} words): {_LATER_NORST}"
+        )
+    if len(qset_values) > MAX_QSETS:
+        raise JpegUnsupportedError(
+            f"more than {MAX_QSETS} distinct quantizer sets in one batch"
+        )
+    # The reference's row width: the longest stuffed segment, in 32-word steps.
+    W = -(-max_words // 32) * 32
+    meta = np.concatenate(lane_meta, axis=0)
+    L = len(meta)
+
+    bits = np.empty((L, W), dtype=np.int32)
+    seg_bits = np.zeros(L, dtype=np.int32)
+    lane0 = 0
+    for scan, n_seg in seg_rows:
+        rows, nb = bits[lane0 : lane0 + n_seg], seg_bits[lane0 : lane0 + n_seg]
+        if scan.destuffed is not None and scan.dseg_starts is not None and len(
+            scan.dseg_starts
+        ) >= n_seg + 1:
+            native_entropy.rows_from_dest(
+                scan.destuffed, scan.dseg_starts, 0, n_seg, W, rows, nb
+            )
+        else:
+            native_entropy.destuff_rows(scan, n_seg, W, rows, nb)
+        lane0 += n_seg
+
+    tables_t, huffval_t = _table_tensors(blk_tables)
+    return LanePlan(
+        bits=torch.from_numpy(bits),
+        seg_bits=torch.from_numpy(seg_bits),
+        lane_m=torch.from_numpy(np.ascontiguousarray(meta[:, 2])),
+        lane_qset=torch.from_numpy(np.asarray(img_qset, np.int32)[meta[:, 0]]),
+        lane_meta=torch.from_numpy(meta),
+        tables=tables_t,
+        huffval=huffval_t,
+        qsets=torch.from_numpy(np.stack(qset_values).astype(np.int32)),
+        blk_tables=blk_tables,
+        n_mcus=max_mcus,
+        n_images=len(jpegs),
+        img_qset=tuple(img_qset),
+    )
+
+
+def plan_from_reference(ref_plan) -> LanePlan:
+    """The reference's BlockPlan (numpy, [G, 8, K, ...] lane groups) as
+    the port's flat plan: lane groups flattened and trimmed to the real
+    lane count, tables and quantizer sets as tensors. Lets a test feed
+    the identical plan to both decoders."""
+    L = ref_plan.n_lanes
+
+    def flat(a):
+        return torch.from_numpy(np.ascontiguousarray(np.asarray(a).reshape(-1)[:L]).astype(np.int32))
+
+    blk_tables = tuple(
+        (ci, CanonTable(tuple(d.maxcode), tuple(d.valoffset), tuple(d.huffval)),
+         CanonTable(tuple(a.maxcode), tuple(a.valoffset), tuple(a.huffval)))
+        for ci, d, a in ref_plan.blk_tables
+    )
+    tables, huffval = _table_tensors(blk_tables)
+    W = ref_plan.n_words
+    return LanePlan(
+        bits=torch.from_numpy(
+            np.ascontiguousarray(np.asarray(ref_plan.bits).reshape(-1, W)[:L])
+        ),
+        seg_bits=flat(ref_plan.seg_bits),
+        lane_m=flat(ref_plan.lane_m),
+        lane_qset=flat(ref_plan.lane_qset),
+        lane_meta=torch.from_numpy(np.asarray(ref_plan.lane_meta, np.int32)),
+        tables=tables,
+        huffval=huffval,
+        qsets=torch.tensor(ref_plan.qsets, dtype=torch.int32),
+        blk_tables=blk_tables,
+        n_mcus=ref_plan.n_mcus,
+        n_images=ref_plan.images,
+        img_qset=tuple(ref_plan.img_qset),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Plane layout
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class PlaneLayout:
+    """Where block position b of MCU g lands: plane sp = blk[b][1], block
+    row (g // mcus_x) * v + dv, block column (g % mcus_x) * h + dh."""
+
+    mcus_x: int
+    blk: Tuple[Tuple[int, int, int, int], ...]    # (ci, sp, dv, dh) per block
+    comp: Tuple[Tuple[int, int, int, int], ...]   # (h, v, plane_h, plane_w) per sp
+    out_order: Tuple[int, ...]                    # sp of each returned plane
+
+    @classmethod
+    def of(cls, geom: ImageGeom) -> "PlaneLayout":
+        frame = geom.frame
+        if geom.interleaved:
+            cis = geom.comp_indices
+            hv = [(frame.components[ci].h, frame.components[ci].v) for ci in cis]
+            mcus_x = frame.mcus_x
+            out_order = tuple(cis.index(c.index) for c in frame.components)
+        else:
+            cis = geom.comp_indices[:1]
+            hv = [(1, 1)]
+            mcus_x = frame.components[cis[0]].width_blocks
+            out_order = (0,)
+        blk, comp = [], []
+        for sp, (ci, (h, v)) in enumerate(zip(cis, hv)):
+            c = frame.components[ci]
+            comp.append((h, v, c.padded_hb * 8, c.padded_wb * 8))
+            blk += [(ci, sp, dv, dh) for dv in range(v) for dh in range(h)]
+        return cls(mcus_x, tuple(blk), tuple(comp), out_order)
+
+    def alloc(self, n: int, device) -> List[torch.Tensor]:
+        """Zeroed uint8[n, plane_h, plane_w] planes, one per scan component."""
+        return [torch.zeros((n, ph, pw), dtype=torch.uint8, device=device)
+                for _h, _v, ph, pw in self.comp]
+
+
+# ---------------------------------------------------------------------------
+# Plain version of kernel A
+# ---------------------------------------------------------------------------
+
+
+def _receive_extend(win: torch.Tensor, length: torch.Tensor, size: torch.Tensor) -> torch.Tensor:
+    """EXTEND of the `size` magnitude bits that follow a `length`-bit code
+    in the 32-bit window (int64 tensors holding uint32 values)."""
+    after = (win << length) & 0xFFFFFFFF
+    mag = torch.where(size > 0, after >> (32 - size), 0)
+    neg = (size > 0) & (mag < (1 << (size - 1).clamp(min=0)))
+    return torch.where(neg, mag - (1 << size) + 1, mag)
+
+
+def _decode_symbol(win: torch.Tensor, mc, vo, huffval: torch.Tensor):
+    """Canonical decode for every lane: (symbol, code length), length 17
+    for an invalid code. The shortest length whose maxcode admits the
+    peeked code wins."""
+    length = torch.full_like(win, 17)
+    idx = torch.zeros_like(win)
+    for l in range(16, 0, -1):
+        if mc[l] < 0:
+            continue
+        peek = win >> (32 - l)
+        sel = peek <= mc[l]
+        length = torch.where(sel, l, length)
+        idx = torch.where(sel, peek + vo[l], idx)
+    return huffval[idx.clamp(0, 255)], length
+
+
+def decode_lanes_plain(plan: LanePlan, layout: PlaneLayout,
+                       planes: Sequence[torch.Tensor], err: torch.Tensor) -> None:
+    """Kernel A's plain torch version on the plan's device: all lanes
+    step together, one MCU round and block position at a time (one DC
+    step for all lanes, then an AC loop masked per lane), then dequant,
+    un-zigzag, islow IDCT, +128 and clamp, and a scatter of the 8x8
+    tiles into ``planes[sp]`` (uint8[N, plane_h, plane_w]). Writes the
+    per-lane error bits into ``err`` (int32[L])."""
+    dev = plan.bits.device
+    L, W = plan.bits.shape
+    P = 1 << max(W - 1, 1).bit_length()
+    words = plan.bits.to(torch.int64) & 0xFFFFFFFF
+    tbl = plan.tables.tolist()
+    hv = plan.huffval.to(torch.int64)
+    lane_m = plan.lane_m.to(torch.int64)
+    img = plan.lane_meta[:, 0].to(torch.int64)
+    first = plan.lane_meta[:, 1].to(torch.int64)
+    qlane = plan.qsets[plan.lane_qset.to(torch.int64)]          # [L, B, 64]
+    r8 = torch.arange(8, device=dev)
+
+    def load(w):
+        # The reference's word load: row[w mod P] inside the row, 0 in
+        # the [W, P) gap, for reads past the segment's end.
+        i = w & (P - 1)
+        v = words.gather(1, i.clamp(max=W - 1)[:, None])[:, 0]
+        return torch.where(i < W, v, 0)
+
+    def window(cur):
+        w, sh = cur >> 5, cur & 31
+        hi, lo = load(w), load(w + 1)
+        return ((hi << sh) & 0xFFFFFFFF) | torch.where(sh == 0, 0, lo >> (32 - sh))
+
+    cur = torch.zeros(L, dtype=torch.int64, device=dev)
+    e = torch.zeros(L, dtype=torch.int64, device=dev)
+    pred = torch.zeros(4, L, dtype=torch.int64, device=dev)
+    coef = torch.zeros(L, 64, dtype=torch.int64, device=dev)
+    for m in range(plan.n_mcus):
+        active = m < lane_m
+        g = first + m
+        my, mx = g // layout.mcus_x, g % layout.mcus_x
+        for b, (ci, sp, dv, dh) in enumerate(layout.blk):
+            dmc, dvo = tbl[b][0][:17], tbl[b][0][17:]
+            amc, avo = tbl[b][1][:17], tbl[b][1][17:]
+            ok = active & (e == 0)
+            # DC: one symbol for every lane.
+            win = window(cur)
+            t, dlen = _decode_symbol(win, dmc, dvo, hv[b, 0])
+            bad = ok & ((dlen > 16) | (t > 15))
+            t = torch.where(t > 15, 0, t)
+            diff = _receive_extend(win, dlen, t)
+            pred[ci] = pred[ci] + torch.where(ok, diff, 0)
+            cur = cur + torch.where(ok, dlen + t, 0)
+            e = torch.where(bad, _ERR_BADCODE, e)
+            # AC: until every lane's block ends (EOB, k = 64 or an error).
+            coef.zero_()
+            k = torch.where(ok, 1, 64)
+            busy = ok & (k < 64) & (e == 0)
+            while bool(busy.any()):
+                win = window(cur)
+                rs, alen = _decode_symbol(win, amc, avo, hv[b, 1])
+                run, size = rs >> 4, rs & 0x0F
+                val = _receive_extend(win, alen, size)
+                nk = k + torch.where(size > 0, run, 0)
+                emit = busy & (size > 0) & (nk <= 63)
+                # Each slot is written at most once per block (k only
+                # grows), so adding into the zeroed block sets it.
+                coef.scatter_add_(1, nk.clamp(0, 63)[:, None], torch.where(emit, val, 0)[:, None])
+                cur = cur + torch.where(busy, alen + size, 0)
+                is_eob = (size == 0) & (run != 15)
+                is_zrl = (size == 0) & (run == 15)
+                k = torch.where(
+                    busy, torch.where(is_eob, 64, torch.where(is_zrl, k + 16, nk + 1)), k
+                )
+                e = torch.where(busy & (alen > 16), _ERR_BADCODE, e)
+                e = torch.where(busy & (size > 0) & (nk > 63), _ERR_RUN, e)
+                busy = ok & (k < 64) & (e == 0)
+            coef[:, 0] = torch.where(ok, pred[ci], 0)
+            # Epilogue: int32 arithmetic that wraps, as the reference's.
+            deq = T.dequantize(coef.to(torch.int32), qlane[:, b])
+            tile = T.idct8x8_islow(deq)
+            sel = torch.nonzero(active)[:, 0]
+            if sel.numel():
+                h, v = layout.comp[sp][0], layout.comp[sp][1]
+                rows = ((my[sel] * v + dv) * 8)[:, None, None] + r8[None, :, None]
+                cols = ((mx[sel] * h + dh) * 8)[:, None, None] + r8[None, None, :]
+                planes[sp][img[sel][:, None, None], rows, cols] = tile[sel]
+    trunc = (cur > plan.seg_bits.to(torch.int64) + 7) & (lane_m > 0)
+    err.copy_((e | torch.where(trunc, _ERR_TRUNC, 0)).to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# Kernel A wrapper
+# ---------------------------------------------------------------------------
+
+
+def _launch_wavefront(plan: LanePlan, layout: PlaneLayout,
+                      planes: Sequence[torch.Tensor], err: torch.Tensor) -> None:
+    lib = build.get_lib()
+    dev = plan.bits.device
+    B = plan.blocks_per_mcu
+    nq = int(plan.qsets.shape[0])
+    # Quantizers in natural order: the kernel keeps each block natural.
+    q_nat = plan.qsets[:, :, T.NATURAL_TO_ZIGZAG.to(dev)].contiguous()
+    blk = torch.tensor(layout.blk, dtype=torch.int32, device=dev)
+    comp = torch.tensor(layout.comp, dtype=torch.int32, device=dev)
+    ptrs = [p.data_ptr() for p in planes] + [0] * (4 - len(planes))
+    build.check_args(
+        "wavefront_pixels", dev,
+        [(plan.bits, torch.int32, 2), (plan.seg_bits, torch.int32, 1),
+         (plan.lane_m, torch.int32, 1), (plan.lane_qset, torch.int32, 1),
+         (plan.lane_meta, torch.int32, 2), (plan.tables, torch.int32, 3),
+         (plan.huffval, torch.uint8, 3), (err, torch.int32, 1)]
+        + [(p, torch.uint8, 3) for p in planes],
+    )
+    if B > 10 or nq > MAX_QSETS or len(planes) > 4:
+        raise ValueError(f"wavefront_pixels: B={B}, nq={nq}, planes={len(planes)} out of range")
+    L, W = plan.bits.shape
+    rc = lib.tj_wavefront_pixels(
+        plan.bits.data_ptr(), W, 1 << max(W - 1, 1).bit_length(),
+        plan.seg_bits.data_ptr(), plan.lane_m.data_ptr(), plan.lane_qset.data_ptr(),
+        plan.lane_meta.data_ptr(), L,
+        plan.tables.data_ptr(), plan.huffval.data_ptr(), q_nat.data_ptr(),
+        blk.data_ptr(), comp.data_ptr(), B, nq, len(planes), layout.mcus_x,
+        *ptrs, err.data_ptr(), build.stream_of(dev),
+    )
+    build.raise_on_error(rc, "wavefront_pixels")
+    build.LAUNCHES["wavefront_pixels"] += 1
+
+
+def decode_lanes_to_planes(
+    plan: LanePlan, geoms: Sequence[ImageGeom], device, *, plain: bool = False
+) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """Decode every lane of `plan` on `device`. Returns (planes, err):
+    per component, uint8[N, padded_h, padded_w] sample planes (the
+    reference's assemble_pixels_stacked layout, frame component order),
+    and the per-lane error bits int32[L]. On a CUDA device this launches
+    kernel A; on the CPU it runs the plain version. ``plain=True`` runs
+    the plain version on any device, to hold the kernel to it."""
+    device = torch.device(device)
+    layout = PlaneLayout.of(geoms[0])
+    plan = plan.to(device)
+    planes = layout.alloc(len(geoms), device)
+    err = torch.zeros(plan.n_lanes, dtype=torch.int32, device=device)
+    if plain:
+        decode_lanes_plain(plan, layout, planes, err)
+    elif device.type == "cuda":
+        _launch_wavefront(plan, layout, planes, err)
+    elif device.type == "cpu":
+        decode_lanes_plain(plan, layout, planes, err)
+    else:
+        raise ValueError(f"no decode path for device {device}")
+    return [planes[sp] for sp in layout.out_order], err
+
+
+# ---------------------------------------------------------------------------
+# Errors and the public entry
+# ---------------------------------------------------------------------------
+
+
+def failures_from_err(errs: np.ndarray, lane_meta: np.ndarray) -> Dict[int, Exception]:
+    """Per-lane error codes (trimmed to the real lane count) -> one
+    exception per failed image; the first failing lane of an image wins,
+    and within a lane BADCODE beats RUN beats TRUNC."""
+    failures: Dict[int, Exception] = {}
+    for lane in np.nonzero(errs)[0]:
+        img = int(lane_meta[int(lane)][0])
+        if img in failures:
+            continue
+        code = int(errs[lane])
+        if code & _ERR_BADCODE:
+            failures[img] = JpegHuffmanError(
+                f"invalid Huffman code in segment {int(lane)} (image {img})"
+            )
+        elif code & _ERR_RUN:
+            failures[img] = JpegHuffmanError(
+                f"AC run past end of block in segment {int(lane)} (image {img})"
+            )
+        else:
+            failures[img] = JpegTruncatedError(
+                f"entropy segment {int(lane)} truncated (image {img})"
+            )
+    return failures
+
+
+def resolve_rgb_errors(err: torch.Tensor, plan: LanePlan) -> Dict[int, Exception]:
+    """Read back decode_lanes_to_planes' error vector and map it to
+    per-image failures."""
+    errs = err.cpu().numpy().reshape(-1)[: plan.n_lanes]
+    return failures_from_err(errs, plan.lane_meta.cpu().numpy())
+
+
+def decode_batch_to_rgb(
+    jpegs: Sequence, config: DecodeConfig = DEFAULT_CONFIG, device="cuda"
+) -> Tuple[torch.Tensor, Dict[int, Exception]]:
+    """Fused decode of a uniform batch of parsed baseline JPEGs
+    (``host.bitstream.parse``) on `device`: kernel A to component
+    planes, then upsample + color. Returns ([N, H, W, 3] or [N, H, W]
+    uint8 on `device`, {image index: exception})."""
+    from . import pipeline
+
+    plan = build_block_plan(jpegs)
+    geoms = [ImageGeom.of(j) for j in jpegs]
+    planes, err = decode_lanes_to_planes(plan, geoms, device)
+    color = bitstream.color_space(jpegs[0])
+    rgb = pipeline.transform_planes_batch(jpegs[0].frame, planes, config, color=color)
+    return rgb, resolve_rgb_errors(err, plan)
