@@ -3,29 +3,44 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card, nvcc, and this checkout (the committed fixtures in
-tpujpeg_torch/fixtures/ and the reference's JAX-free host files); it
-imports neither JAX nor PIL. Phases, one JSON line each:
+Needs one CUDA card, nvcc, g++ and this checkout (the committed fixtures
+in tpujpeg_torch/fixtures/); it imports neither JAX nor PIL nor any file
+of tpujpeg/. Phases, one JSON line each:
 
 1. device: the card's name and power limit.
-2. build: nvcc builds the four kernels into tpujpeg_torch/_build/.
-3. kernel_vs_plain: on every fixture at batch 2, kernel A's planes and
-   error bits, and kernel B/C/D's RGB, equal their plain torch versions
-   run on the same CUDA tensors (tolerance 0: integer arithmetic).
+2. build: nvcc builds the six kernels into tpujpeg_torch/_build/ (one
+   nvcc per source, all started together).
+3. kernel_vs_plain: on every fused-path fixture at batch 2, kernel A's
+   planes and error bits, kernel 2's coefficients and error bits,
+   kernel 6's planes from those coefficients, and kernel B/C/D's RGB,
+   equal their plain torch versions run on the same CUDA tensors
+   (tolerance 0: integer arithmetic).
 4. main_path: decode_batch_to_rgb of 32 copies of the 2048x2048 q85
    4:2:0 fixture (restart every 4 MCUs), one warm-up and 3 timed runs;
    the launch counters, zeroed just before, show kernels A and B ran
    and no other. Then one batch of 32 each of the 4:2:2, 4:4:4 and gray
    fixtures through the same entry, each counted apart: A and C, A and
-   D, A alone. Decoded images hash to PIL's (manifest). Then each
-   kernel and its plain version are timed with CUDA events on the main
-   path's inputs and compared.
-5. faults: one corrupted member of a batch fails with the manifest's
+   D, A alone. Decoded images hash to PIL's (manifest).
+5. staged: the same 32 images through the staged coefficient path,
+   decode_batch_to_device (kernel 2) then pipeline.transform_batch
+   (kernel 6, then kernel B), one warm-up and 3 timed runs, counted
+   apart: kernels 2, 6 and B ran, A did not. The RGB equals the main
+   path's byte for byte and PIL's hash.
+6. kernel_timing: each kernel and its plain version, timed with CUDA
+   events on the main and staged paths' inputs and compared, beside
+   its bound (bytes over 3.35 TB/s or int32 operations over the card's
+   int32 rate, whichever is larger).
+7. faults: one corrupted member of a batch fails with the manifest's
    exception class; the other members stay bit-exact.
-6. decode: tpujpeg_torch.decode of a fixture hashes to PIL's.
+8. decode: tpujpeg_torch.decode of fused fixtures, and of the staged
+   ones (progressive and marker-free 2048^2 through native entropy,
+   kernel 6 and kernel B; multi-scan with entropy_engine="wavefront",
+   kernel 2 per component), hashes to PIL's.
 
-Then the nvidia-smi line, the kernels JSON line and, last, the ok line.
-Exits non-zero, printing no ok line, on any failure or without a card.
+Then the check that no module was loaded from tpujpeg/ and nothing was
+written there, the nvidia-smi line, the kernels JSON line and, last,
+the ok line. Exits non-zero, printing no ok line, on any failure or
+without a card.
 """
 
 from __future__ import annotations
@@ -42,13 +57,33 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(HERE, "tpujpeg_torch", "fixtures")
 MAIN_BATCH = 32
 
-# name -> (route, source, the TPU kernel it replaces)
+# name -> (source, the TPU kernel it replaces); all are CUDA C++.
 KERNELS = {
     "wavefront_pixels": ("tpujpeg_torch/csrc/wavefront.cu", "tpujpeg/kernels/wavefront_pallas.py:660"),
+    "wavefront_coeff": ("tpujpeg_torch/csrc/wavefront.cu", "tpujpeg/kernels/wavefront_pallas.py:841"),
+    "dequant_idct_islow": ("tpujpeg_torch/csrc/idct.cu", "tpujpeg/kernels/idct.py:42"),
     "upsample_color_h2v2": ("tpujpeg_torch/csrc/sample_color.cu", "tpujpeg/kernels/sample_color.py:97"),
     "upsample_color_h2v1": ("tpujpeg_torch/csrc/sample_color.cu", "tpujpeg/kernels/sample_color.py:146"),
     "color_444": ("tpujpeg_torch/csrc/sample_color.cu", "tpujpeg/kernels/sample_color.py:160"),
 }
+
+# The card's roofs for bound_ms: HBM3 at 3.35 TB/s, and int32 ALU work
+# at 132 SMs x 64 INT32 lanes x 1.98 GHz (half the float32 lanes behind
+# the 67 TFLOP/s figure of NVIDIA's data sheet; one op per lane-cycle).
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# int32 operations each kernel needs, counted from the CUDA sources:
+# one 8-point islow butterfly (tj_idct_1d) is 62, so one block's
+# dequant (64) + 16 butterflies (992) + level shift, clamp and byte
+# packing (320) is 1,376; the color kernels need per output pixel the
+# YCbCr->RGB fixed point with clamps (22) plus, per chroma channel, the
+# triangular taps (4:2:0: 5, 4:2:2: 4). A Huffman symbol costs at least
+# 8 (window, one code compare, value fetch, extend, cursor); symbols
+# are counted from this run's coefficients as DC + nonzero AC + EOB,
+# leaving out ZRLs, so the decode count is a lower bound.
+OPS_IDCT_BLOCK = 1376
+OPS_COLOR_PIXEL = {"upsample_color_h2v2": 32, "upsample_color_h2v1": 30, "color_444": 22}
+OPS_SYMBOL = 8
 
 
 class SmokeError(Exception):
@@ -91,7 +126,24 @@ def cuda_ms(torch, fn, reps):
 
 
 def max_abs(torch, a, b) -> int:
-    return int((a.to(torch.int32) - b.to(torch.int32)).abs().max().item()) if a.numel() else 0
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item()) if a.numel() else 0
+
+
+def bound(nbytes: float, ops: float):
+    """(bound_ms, bound_by): the larger of the bytes and operations times."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ref_tree(root: str):
+    """(path, size, mtime) of every file under the reference package."""
+    out = []
+    for dirpath, _dirs, files in os.walk(os.path.join(root, "tpujpeg")):
+        for f in files:
+            st = os.stat(os.path.join(dirpath, f))
+            out.append((os.path.join(dirpath, f), st.st_size, st.st_mtime_ns))
+    return sorted(out)
 
 
 def main() -> int:
@@ -100,13 +152,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on a card", file=sys.stderr)
         return 1
+    ref_before = ref_tree(HERE)
     sys.path.insert(0, HERE)
     try:
         import tpujpeg_torch
     except ImportError as e:
         print(f"chip_smoke: run it from a checkout of the repo: {e}", file=sys.stderr)
         return 1
-    from tpujpeg_torch.kernels import build, sample_color as sc, wavefront as wf
+    from tpujpeg_torch.kernels import build, idct, pipeline, sample_color as sc, wavefront as wf
 
     with open(os.path.join(FIXTURES, "manifest.json")) as f:
         manifest = json.load(f)
@@ -115,8 +168,10 @@ def main() -> int:
         with open(os.path.join(FIXTURES, entry["file"]), "rb") as f:
             datas[name] = f.read()
         check(hashlib.sha256(datas[name]).hexdigest() == entry["file_sha256"], f"{name}: file hash")
+    fused = [n for n, e in manifest["fixtures"].items() if e["path"] == "fused"]
     dev = torch.device("cuda", 0)
     parse = tpujpeg_torch.bitstream.parse
+    config = tpujpeg_torch.DEFAULT_CONFIG
 
     # 1. device
     smi = nvidia_smi()
@@ -138,27 +193,49 @@ def main() -> int:
     color_of = {"420_2048": "upsample_color_h2v2", "420_odd": "upsample_color_h2v2",
                 "422": "upsample_color_h2v1", "444": "color_444"}
 
-    def lanes(plan, geoms):
-        """Kernel A and its plain version on the same CUDA tensors."""
-        planes_k, err_k = wf.decode_lanes_to_planes(plan, geoms, dev)
+    def lanes(plan, geoms, fn):
+        """A lane kernel (decode_lanes_to_planes: A, _to_coeffs: 2) and its
+        plain version on the same CUDA tensors."""
+        out_k, err_k = fn(plan, geoms, dev)
         torch.cuda.synchronize()
-        planes_p, err_p = wf.decode_lanes_to_planes(plan, geoms, dev, plain=True)
+        out_p, err_p = fn(plan, geoms, dev, plain=True)
         torch.cuda.synchronize()
-        return planes_k, err_k, planes_p, err_p
+        return out_k, err_k, out_p, err_p
 
     def cropped(frame, planes):
         return [p[:, : c.dheight, : c.dwidth] for p, c in zip(planes, frame.components)]
 
-    # 3. kernel vs plain on every fixture at batch 2
-    for name, data in datas.items():
-        jpegs = [parse(data) for _ in range(2)]
+    def idct_planes(frame, coeffs, qtabs, plain=False):
+        """Kernel 6 (or its plain version) on every component."""
+        fn = idct.dequant_idct_islow_plain if plain else idct.dequant_idct_islow
+        return [fn(c, q, fc.padded_hb, fc.padded_wb) for c, q, fc in zip(coeffs, qtabs, frame.components)]
+
+    def qtabs_of(jpeg):
+        return [torch.from_numpy(jpeg.qtables[c.tq].astype("int32")).to(dev) for c in jpeg.frame.components]
+
+    # 3. kernel vs plain on every fused-path fixture at batch 2
+    for name in fused:
+        jpegs = [parse(datas[name]) for _ in range(2)]
         plan = wf.build_block_plan(jpegs)
         geoms = [wf.ImageGeom.of(j) for j in jpegs]
-        planes_k, err_k, planes_p, err_p = lanes(plan, geoms)
+        planes_k, err_k, planes_p, err_p = lanes(plan, geoms, wf.decode_lanes_to_planes)
         err_a = max(max_abs(torch, a, b) for a, b in zip(planes_k, planes_p))
         check(err_a == 0 and torch.equal(err_k, err_p), f"{name}: kernel A != plain ({err_a})")
         check(not err_k.any(), f"{name}: decode errors {err_k.nonzero().flatten().tolist()}")
-        rec = dict(fixture=name, lanes=plan.n_lanes, words=plan.n_words, kernel_a_max_abs_err=err_a)
+        coef_k, err2_k, coef_p, err2_p = lanes(plan, geoms, wf.decode_lanes_to_coeffs)
+        err_2 = max(max_abs(torch, a, b) for a, b in zip(coef_k, coef_p))
+        check(err_2 == 0 and torch.equal(err2_k, err2_p), f"{name}: kernel 2 != plain ({err_2})")
+        check(torch.equal(err2_k, err_k), f"{name}: kernel 2 and kernel A error bits differ")
+        qt = qtabs_of(jpegs[0])
+        idct_k = idct_planes(jpegs[0].frame, coef_k, qt)
+        torch.cuda.synchronize()
+        idct_p = idct_planes(jpegs[0].frame, coef_k, qt, plain=True)
+        err_6 = max(max_abs(torch, a, b) for a, b in zip(idct_k, idct_p))
+        check(err_6 == 0, f"{name}: kernel 6 != plain ({err_6})")
+        check(all(torch.equal(a, b) for a, b in zip(idct_k, planes_k)),
+              f"{name}: kernel 2 + kernel 6 planes != kernel A planes")
+        rec = dict(fixture=name, lanes=plan.n_lanes, words=plan.n_words, kernel_a_max_abs_err=err_a,
+                   kernel_2_max_abs_err=err_2, kernel_6_max_abs_err=err_6)
         if name in color_of:
             kern, plain = color_fns[color_of[name]]
             ins = cropped(jpegs[0].frame, planes_k)
@@ -204,6 +281,7 @@ def main() -> int:
     emit("main_path", images=MAIN_BATCH, megapixels=mp, calls=4, wall_s=walls, wall_median_s=wall,
          mp_per_s=mp / wall, parse_s=t_parse, host_plan_s=t_plan, launches=main_launches,
          lanes=plan.n_lanes, words=plan.n_words, rgb_bytes=rgb.numel())
+    fused_rgb = rgb
     del rgb
 
     # The same entry on the other subsamplings: kernels C and D each run
@@ -226,32 +304,103 @@ def main() -> int:
         others[name] = js
         emit("batch", fixture=name, images=MAIN_BATCH, launches=got)
 
-    # Each kernel against its plain version on the main path's inputs.
+    # 5. staged: the same 32 streams through kernels 2, 6 and B.
+    frame = jpegs[0].frame
+    qtabs = qtabs_of(jpegs[0])
+    walls = []
+    build.LAUNCHES.clear()
+    for i in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results, failures = tpujpeg_torch.decode_batch_to_device(jpegs, config, device=dev)
+        coeffs = [torch.stack([r[ci] for r in results]) for ci in range(frame.n_components)]
+        rgb = pipeline.transform_batch(frame, coeffs, qtabs, config)
+        torch.cuda.synchronize()
+        if i:
+            walls.append(time.perf_counter() - t0)
+        check(not failures, f"staged failures: {failures}")
+    staged_launches = {k: build.LAUNCHES.get(k, 0) for k in KERNELS}
+    check(set(k for k, n in staged_launches.items() if n)
+          == {"wavefront_coeff", "dequant_idct_islow", "upsample_color_h2v2"},
+          f"staged launches {staged_launches}")
+    check(torch.equal(rgb, fused_rgb), "staged RGB != fused main path RGB")
+    for i in (0, MAIN_BATCH - 1):
+        check(sha(rgb[i]) == want["pil_sha256"], f"staged image {i} != PIL")
+    for k in ("wavefront_coeff", "dequant_idct_islow"):
+        launches[k] = staged_launches[k]
+    coeff_bytes = sum(c.numel() * 4 for c in coeffs)
+    blocks = sum(c.shape[0] * c.shape[1] for c in coeffs)
+    symbols = sum(int(c.shape[0] * c.shape[1] + (c[..., 1:] != 0).sum() + (c[..., 63] == 0).sum())
+                  for c in coeffs)
+    wall = statistics.median(walls)
+    emit("staged", images=MAIN_BATCH, megapixels=mp, calls=4, wall_s=walls, wall_median_s=wall,
+         mp_per_s=mp / wall, host_plan_s=t_plan, launches=staged_launches, coeff_bytes=coeff_bytes,
+         blocks=blocks, symbols_lower_bound=symbols)
+    del rgb, fused_rgb, results
+
+    # 6. Each kernel against its plain version on the main path's inputs.
     results = {}
     geoms = [wf.ImageGeom.of(j) for j in jpegs]
-    planes_k, err_k, planes_p, err_p = lanes(plan, geoms)
-    err_a = max(max_abs(torch, a, b) for a, b in zip(planes_k, planes_p))
-    check(err_a == 0 and torch.equal(err_k, err_p), f"main path: kernel A != plain ({err_a})")
     layout = wf.PlaneLayout.of(geoms[0])
     pd = plan.to(dev)
-    scratch = layout.alloc(len(geoms), dev)
+    row_bytes = int(plan.seg_bits.to(torch.int64).sum()) // 8
     err_s = torch.zeros(plan.n_lanes, dtype=torch.int32, device=dev)
+    decode_ops = symbols * OPS_SYMBOL
+    lane_shape = (f"{plan.n_lanes} lanes x {plan.n_words} words, {plan.blocks_per_mcu} blocks/MCU, "
+                  f"{plan.n_mcus} MCUs/lane")
+
+    planes_k, err_k, planes_p, err_p = lanes(plan, geoms, wf.decode_lanes_to_planes)
+    err_a = max(max_abs(torch, a, b) for a, b in zip(planes_k, planes_p))
+    check(err_a == 0 and torch.equal(err_k, err_p), f"main path: kernel A != plain ({err_a})")
+    del planes_p
+    scratch = layout.alloc(len(geoms), dev)
     results["wavefront_pixels"] = dict(
         max_abs_err=err_a,
         ms=cuda_ms(torch, lambda: wf._launch_wavefront(pd, layout, scratch, err_s), 5),
         plain_ms=cuda_ms(torch, lambda: wf.decode_lanes_plain(pd, layout, scratch, err_s), 1),
-        shape=f"{plan.n_lanes} lanes x {plan.n_words} words, {plan.blocks_per_mcu} blocks/MCU, "
-              f"{plan.n_mcus} MCUs/lane",
+        shape=lane_shape,
+        bound=bound(row_bytes + sum(p.numel() for p in planes_k), decode_ops + blocks * OPS_IDCT_BLOCK),
     )
-    del planes_p, scratch
-    color_inputs = {"upsample_color_h2v2": (jpegs[0].frame, planes_k)}
+    del scratch
+
+    coef_k, err2_k, coef_p, err2_p = lanes(plan, geoms, wf.decode_lanes_to_coeffs)
+    err_2 = max(max_abs(torch, a, b) for a, b in zip(coef_k, coef_p))
+    check(err_2 == 0 and torch.equal(err2_k, err2_p), f"main path: kernel 2 != plain ({err_2})")
+    del coef_p
+    scratch = layout.alloc(len(geoms), dev, "coeff")
+    results["wavefront_coeff"] = dict(
+        max_abs_err=err_2,
+        ms=cuda_ms(torch, lambda: wf._launch_wavefront(pd, layout, scratch, err_s, "coeff"), 5),
+        plain_ms=cuda_ms(torch, lambda: wf.decode_lanes_plain(pd, layout, scratch, err_s, "coeff"), 1),
+        shape=lane_shape,
+        bound=bound(row_bytes + coeff_bytes, decode_ops),
+    )
+    del scratch
+
+    idct_k = idct_planes(frame, coef_k, qtabs)
+    torch.cuda.synchronize()
+    idct_p = idct_planes(frame, coef_k, qtabs, plain=True)
+    err_6 = max(max_abs(torch, a, b) for a, b in zip(idct_k, idct_p))
+    check(err_6 == 0 and all(torch.equal(a, b) for a, b in zip(idct_k, planes_k)),
+          f"main path: kernel 6 != plain or != kernel A ({err_6})")
+    del idct_p
+    results["dequant_idct_islow"] = dict(
+        max_abs_err=err_6,
+        ms=cuda_ms(torch, lambda: idct_planes(frame, coef_k, qtabs), 10),
+        plain_ms=cuda_ms(torch, lambda: idct_planes(frame, coef_k, qtabs, plain=True), 1),
+        shape=" + ".join(f"{tuple(c.shape)}" for c in coef_k) + " int32, one launch per component",
+        bound=bound(coeff_bytes + sum(p.numel() for p in idct_k), blocks * OPS_IDCT_BLOCK),
+    )
+    del coef_k, idct_k
+
+    color_inputs = {"upsample_color_h2v2": (frame, planes_k)}
     for name, kname in (("422", "upsample_color_h2v1"), ("444", "color_444")):
         js = others[name]
         color_inputs[kname] = (js[0].frame, wf.decode_lanes_to_planes(
             wf.build_block_plan(js), [wf.ImageGeom.of(j) for j in js], dev)[0])
-    for kname, (frame, planes) in color_inputs.items():
+    for kname, (fr, planes) in color_inputs.items():
         kern, plain = color_fns[kname]
-        ins = cropped(frame, planes)
+        ins = cropped(fr, planes)
         out_k = kern(*ins)
         out_p = plain(*ins)
         results[kname] = dict(
@@ -259,13 +408,17 @@ def main() -> int:
             ms=cuda_ms(torch, lambda: kern(*ins), 10),
             plain_ms=cuda_ms(torch, lambda: plain(*ins), 3),
             shape=f"{tuple(ins[0].shape)} luma, {tuple(ins[1].shape)} chroma -> {tuple(out_k.shape)}",
+            bound=bound(sum(t.numel() for t in ins) + out_k.numel(),
+                        (out_k.numel() // 3) * OPS_COLOR_PIXEL[kname]),
         )
         check(results[kname]["max_abs_err"] == 0, f"{kname}: kernel != plain on the main path")
         del out_k, out_p
+    del planes_k, color_inputs
     for k, r in results.items():
+        r["bound_ms"], r["bound_by"] = r.pop("bound")
         emit("kernel_timing", kernel=k, **r)
 
-    # 5. faults
+    # 7. faults
     for fault in manifest["faults"]:
         data = datas[fault["fixture"]]
         js = [parse(data) for _ in range(fault["batch"])]
@@ -280,20 +433,41 @@ def main() -> int:
                       f"fault {fault}: member {i} not bit-exact")
         emit("faults", fault=fault, failures=got)
 
-    # 6. decode()
-    for name in ("420_odd", "gray"):
-        out = tpujpeg_torch.decode(datas[name], device=dev)
+    # 8. decode(): fused fixtures, then the staged ones.
+    wavefront = tpujpeg_torch.DecodeConfig(entropy_engine="wavefront")
+    for name, cfg, engines in (("420_odd", config, ("wavefront-fused", "cuda")),
+                               ("gray", config, ("wavefront-fused", "cuda")),
+                               ("prog_2048", config, ("native", "cuda")),
+                               ("norst_2048", config, ("native", "cuda")),
+                               ("multiscan", wavefront, ("wavefront", "cuda"))):
+        build.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, st = tpujpeg_torch.decode(datas[name], cfg, device=dev, return_stats=True)
+        seconds = time.perf_counter() - t0
         check(hashlib.sha256(out.tobytes()).hexdigest() == manifest["fixtures"][name]["pil_sha256"],
               f"decode({name}) != PIL")
-        emit("decode", fixture=name, shape=list(out.shape))
+        check((st.entropy_engine, st.transform_engine) == engines,
+              f"decode({name}) took {st.entropy_engine}/{st.transform_engine}")
+        emit("decode", fixture=name, shape=list(out.shape), entropy_engine=st.entropy_engine,
+             transform_engine=st.transform_engine, entropy_fallbacks=st.entropy_fallbacks,
+             seconds=seconds, t_entropy=st.t_entropy, t_transform=st.t_transform,
+             launches={k: n for k, n in build.LAUNCHES.items() if n})
 
     loaded = sorted(m for m in ("jax", "jaxlib", "PIL", "tpujpeg") if m in sys.modules)
     check(not loaded, f"the port loaded {loaded}")
+    ref_dir = os.path.join(HERE, "tpujpeg") + os.sep
+    from_ref = sorted(m.__name__ for m in list(sys.modules.values())
+                      if isinstance(getattr(m, "__file__", None), str)
+                      and os.path.abspath(m.__file__).startswith(ref_dir))
+    check(not from_ref, f"modules loaded from tpujpeg/: {from_ref}")
+    check(ref_tree(HERE) == ref_before, "files under tpujpeg/ were added or changed")
     print(smi)
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=KERNELS[k][0], replaces=KERNELS[k][1],
              launches=launches[k], max_abs_err=results[k]["max_abs_err"],
-             ms=results[k]["ms"], plain_ms=results[k]["plain_ms"])
+             ms=results[k]["ms"], plain_ms=results[k]["plain_ms"],
+             bound_ms=results[k]["bound_ms"], bound_by=results[k]["bound_by"], library_ms=None)
         for k in KERNELS
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

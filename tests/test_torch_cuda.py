@@ -1,4 +1,4 @@
-"""Kernels A-D against their plain torch versions on a CUDA card.
+"""Kernels A-D, 2 and 6 against their plain torch versions on a CUDA card.
 
 Every test here needs a card: each skips, with a reason, where
 torch.cuda.is_available() is false. This file imports neither JAX nor PIL,
@@ -21,6 +21,7 @@ import torch
 
 import tpujpeg_torch
 from tpujpeg_torch.kernels import build
+from tpujpeg_torch.kernels import idct
 from tpujpeg_torch.kernels import sample_color as sc
 from tpujpeg_torch.kernels import wavefront as wf
 
@@ -28,6 +29,8 @@ FIXTURES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__
                         "tpujpeg_torch", "fixtures")
 with open(os.path.join(FIXTURES, "manifest.json")) as _f:
     MANIFEST = json.load(_f)
+FUSED = sorted(n for n, e in MANIFEST["fixtures"].items() if e["path"] == "fused")
+STAGED = sorted(n for n, e in MANIFEST["fixtures"].items() if e["path"] == "staged")
 
 
 @pytest.fixture
@@ -57,16 +60,16 @@ def _kernel_and_plain(jpegs, dev):
     return err
 
 
-@pytest.mark.parametrize("name", sorted(MANIFEST["fixtures"]))
+@pytest.mark.parametrize("name", FUSED)
 def test_kernel_a_matches_plain_on_fixtures(cuda, name):
     data = _read(name)
     err = _kernel_and_plain([tpujpeg_torch.bitstream.parse(data) for _ in range(2)], cuda)
     assert not err.any()
 
 
-def test_kernel_a_matches_plain_on_corrupt_streams(cuda):
-    """Seeded byte flips in the scan data of one fixture: the error bits
-    and the garbage pixels of the failing lanes must match too."""
+def _corrupt_batch():
+    """420_odd and seeded byte flips in its scan data that parse and plan
+    in one batch with it."""
     data = _read("420_odd")
     start = data.index(b"\xff\xda")
     rng = np.random.default_rng(7)
@@ -85,8 +88,67 @@ def test_kernel_a_matches_plain_on_corrupt_streams(cuda):
             continue
         jpegs.append(j)
     assert len(jpegs) > 8
-    err = _kernel_and_plain(jpegs, cuda)
+    return jpegs
+
+
+def test_kernel_a_matches_plain_on_corrupt_streams(cuda):
+    """The error bits and the garbage pixels of the failing lanes must
+    match too."""
+    err = _kernel_and_plain(_corrupt_batch(), cuda)
     assert err.any()
+
+
+def _coeff_kernel_and_plain(jpegs, dev):
+    """Kernel 2 against its plain version: error bits for every lane,
+    coefficients for the images that did not fail (a failing lane's
+    blocks are garbage, and the image is dropped)."""
+    plan = wf.build_block_plan(jpegs)
+    geoms = [wf.ImageGeom.of(j) for j in jpegs]
+    before = build.LAUNCHES["wavefront_coeff"]
+    coeffs, err = wf.decode_lanes_to_coeffs(plan, geoms, dev)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["wavefront_coeff"] == before + 1
+    want, want_err = wf.decode_lanes_to_coeffs(plan, geoms, dev, plain=True)
+    assert build.LAUNCHES["wavefront_coeff"] == before + 1
+    assert torch.equal(err, want_err)
+    failed = set(plan.lane_meta[err.cpu() != 0, 0].tolist())
+    ok = [i for i in range(len(jpegs)) if i not in failed]
+    for a, b in zip(coeffs, want):
+        assert a.dtype == torch.int32 and torch.equal(a[ok], b[ok])
+    return err
+
+
+@pytest.mark.parametrize("name", FUSED)
+def test_kernel_2_matches_plain_on_fixtures(cuda, name):
+    data = _read(name)
+    err = _coeff_kernel_and_plain([tpujpeg_torch.bitstream.parse(data) for _ in range(2)], cuda)
+    assert not err.any()
+
+
+def test_kernel_2_matches_plain_on_corrupt_streams(cuda):
+    err = _coeff_kernel_and_plain(_corrupt_batch(), cuda)
+    assert err.any()
+
+
+@pytest.mark.parametrize("per_image_q", [False, True])
+@pytest.mark.parametrize("with_dc", [False, True])
+@pytest.mark.parametrize("n,hb,wb", [(1, 1, 1), (3, 5, 7), (130, 1, 2), (2, 40, 33)])
+def test_kernel_6_matches_plain(cuda, n, hb, wb, per_image_q, with_dc):
+    """Random coefficients, every 5th block over the whole int32 range so
+    that the arithmetic wraps; one quantizer or one per image; with and
+    without a DC column."""
+    g = torch.Generator().manual_seed(n * 10000 + hb * 100 + wb)
+    c = torch.randint(-1024, 1024, (n, hb * wb, 64), generator=g, dtype=torch.int32)
+    c[:, ::5] = torch.randint(-(2**31), 2**31 - 1, c[:, ::5].shape, generator=g, dtype=torch.int32)
+    q = torch.randint(1, 256, (n, 64) if per_image_q else (64,), generator=g, dtype=torch.int32)
+    dc = torch.randint(-(2**31), 2**31 - 1, (n, hb * wb), generator=g, dtype=torch.int32) if with_dc else None
+    before = build.LAUNCHES["dequant_idct_islow"]
+    args = [t.to(cuda) if t is not None else None for t in (c, q, dc)]
+    got = idct.dequant_idct_islow(args[0], args[1], hb, wb, args[2])
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["dequant_idct_islow"] == before + 1
+    assert torch.equal(got, idct.dequant_idct_islow_plain(args[0], args[1], hb, wb, args[2]))
+    assert torch.equal(got.cpu(), idct.dequant_idct_islow_plain(c, q, hb, wb, dc))
 
 
 COLOR = [
@@ -115,7 +177,8 @@ def test_color_kernels_match_plain(cuda, k, h, w):
 def test_decode_batch_to_rgb_on_card_matches_pil_hashes(cuda):
     import hashlib
 
-    for name, entry in MANIFEST["fixtures"].items():
+    for name in FUSED:
+        entry = MANIFEST["fixtures"][name]
         if name == "420_2048":
             continue
         data = _read(name)
@@ -124,3 +187,19 @@ def test_decode_batch_to_rgb_on_card_matches_pil_hashes(cuda):
         assert not failures and rgb.device.type == "cuda"
         for i in range(3):
             assert hashlib.sha256(rgb[i].cpu().numpy().tobytes()).hexdigest() == entry["pil_sha256"]
+
+
+@pytest.mark.parametrize("name,entropy", [(n, e) for n in STAGED for e in ("auto", "native")]
+                         + [("multiscan", "wavefront")])
+def test_staged_decode_on_card_matches_pil_hashes(cuda, name, entropy):
+    import hashlib
+
+    before = dict(build.LAUNCHES)
+    out, stats = tpujpeg_torch.decode(
+        _read(name), tpujpeg_torch.DecodeConfig(entropy_engine=entropy), device=cuda, return_stats=True)
+    assert hashlib.sha256(out.tobytes()).hexdigest() == MANIFEST["fixtures"][name]["pil_sha256"]
+    assert stats.entropy_engine == ("native" if entropy == "auto" else entropy)
+    assert stats.transform_engine == "cuda"
+    assert build.LAUNCHES["dequant_idct_islow"] == before.get("dequant_idct_islow", 0) + 3
+    if entropy == "wavefront":
+        assert build.LAUNCHES["wavefront_coeff"] == before.get("wavefront_coeff", 0) + 3

@@ -1,6 +1,7 @@
 """The whole slice on device="cpu": tpujpeg_torch.decode_batch_to_rgb and
 tpujpeg_torch.decode against the reference entry points (interpret mode)
-and PIL, on the reference tests' fused-path corpus. Tolerance 0;
+and PIL, on the reference tests' fused-path corpus, and decode() on the
+streams the fused path turns away (the staged path). Tolerance 0;
 failures are compared by image index and exception class name (the
 port's exception classes are distinct objects). Batches with failing
 members are compared in test_torch_wavefront.py (per-lane error bits)
@@ -17,7 +18,7 @@ from tpujpeg import bitstream as ref_bitstream
 from tpujpeg.kernels import wavefront_pallas as wp
 
 import tpujpeg_torch
-from tpujpeg_torch.host import DecodeConfig
+from tpujpeg_torch import DecodeConfig
 
 
 def _data(case, seed=9):
@@ -57,15 +58,28 @@ def test_decode_returns_tensor_without_to_numpy():
     np.testing.assert_array_equal(out.numpy(), pil_decode(data))
 
 
+# The three streams the fused path turns away now decode on the staged
+# path (native entropy, kernel 6, kernel B); with entropy_engine=
+# "wavefront" they stay outside this slice and raise, naming the slice
+# that will take them.
 OUT_OF_SLICE = {
     "progressive": (make_jpeg(64, 64, seed=1, subsampling=2, progressive=True), "progressive"),
     "oversize_segment": (make_jpeg(96, 64, seed=9, subsampling=0), "marker-free"),
-    "multi_scan": (make_multiscan_jpeg(96, 80, seed=9, subsampling=2, restart_blocks=4), "staged"),
+    "multi_scan": (make_multiscan_jpeg(96, 80, seed=9, subsampling=2), "marker-free"),
 }
+
+
+@pytest.mark.parametrize("name", list(OUT_OF_SLICE))
+def test_decode_formerly_out_of_slice_matches_reference_and_pil(name):
+    data, _ = OUT_OF_SLICE[name]
+    got, stats = tpujpeg_torch.decode(data, device="cpu", return_stats=True)
+    assert stats.entropy_engine == "native"
+    np.testing.assert_array_equal(got, np.asarray(tpujpeg.decode(data)))
+    np.testing.assert_array_equal(got, pil_decode(data))
 
 
 @pytest.mark.parametrize("name", list(OUT_OF_SLICE))
 def test_decode_out_of_slice_raises_unsupported(name):
     data, slice_word = OUT_OF_SLICE[name]
     with pytest.raises(tpujpeg_torch.JpegUnsupportedError, match=slice_word):
-        tpujpeg_torch.decode(data, device="cpu")
+        tpujpeg_torch.decode(data, DecodeConfig(entropy_engine="wavefront"), device="cpu")

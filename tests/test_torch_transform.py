@@ -11,7 +11,7 @@ from tpujpeg import bitstream as ref_bitstream
 from tpujpeg import transform as R
 
 from tpujpeg_torch import transform as T
-from tpujpeg_torch.host import bitstream as port_bitstream
+from tpujpeg_torch import bitstream as port_bitstream
 
 
 def _same(got, want):

@@ -3,35 +3,42 @@ CUDA kernels for Hopper (sm_90a).
 
 A port of the JAX/Pallas package ``tpujpeg``, which stays beside it as
 the reference: the same bytes out for the same JPEG in. This package
-imports torch and never JAX; the parser, error taxonomy and native
-destuff are the reference's own JAX-free files, loaded by ``host``.
+imports torch and never JAX, and reads no file of ``tpujpeg/``: the
+parser (``bitstream``), error taxonomy, config, stats, the python
+entropy oracle (``huffman``) and the native C++ entropy library
+(``native/``) are its own copies of the reference's JAX-free files.
 
 Public API:
-    decode(data, config, device)                -> one image
-    decode_batch_to_rgb(jpegs, config, device)  -> (uint8 [N, H, W, 3], failures)
-    DecodeConfig, JpegError and its subclasses
+    decode(data, config, device)                  -> one image
+    decode_file(path, config, device=...)         -> one image
+    decode_batch_to_rgb(jpegs, config, device)    -> (uint8 [N, H, W, 3], failures)
+    decode_batch_to_device(jpegs, config, strict, device)
+                                                  -> (per image, per component
+                                                      int32 [blocks, 64], failures)
+    DecodeConfig, DecodeStats, JpegError and its subclasses
 
 The kernels build with nvcc at first use on a CUDA device; on the CPU
 every kernel's plain torch version runs instead.
 """
 
-from .decoder import decode
-from .host import (
-    DEFAULT_CONFIG,
-    DecodeConfig,
-    DecodeStats,
+from . import bitstream
+from .config import DEFAULT_CONFIG, DecodeConfig
+from .decoder import decode, decode_file
+from .errors import (
     JpegError,
     JpegHuffmanError,
     JpegSyntaxError,
     JpegTruncatedError,
     JpegUnsupportedError,
-    bitstream,
 )
-from .kernels.wavefront import decode_batch_to_rgb
+from .kernels.wavefront import decode_batch_to_device, decode_batch_to_rgb
+from .stats import DecodeStats
 
 __all__ = [
     "decode",
+    "decode_file",
     "decode_batch_to_rgb",
+    "decode_batch_to_device",
     "bitstream",
     "DecodeConfig",
     "DEFAULT_CONFIG",

@@ -20,6 +20,80 @@ __device__ __forceinline__ uint8_t tj_clamp_u8(int v) {
   return (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v));
 }
 
+// natural index -> zigzag position (T.81 A.6, bitstream.NATURAL_TO_ZIGZAG).
+// A function over a local constexpr table: called with an unrolled loop
+// index it folds to a constant, so the arrays it indexes stay in registers.
+__host__ __device__ constexpr int tj_natural_to_zigzag(int n) {
+  constexpr int8_t t[64] = {
+      0,  1,  5,  6,  14, 15, 27, 28, 2,  4,  7,  13, 16, 26, 29, 42,
+      3,  8,  12, 17, 25, 30, 41, 43, 9,  11, 18, 24, 31, 40, 44, 53,
+      10, 19, 23, 32, 39, 45, 52, 54, 20, 22, 33, 38, 46, 51, 55, 60,
+      21, 34, 37, 47, 50, 56, 59, 61, 35, 36, 48, 49, 57, 58, 62, 63,
+  };
+  return t[n];
+}
+
+__device__ __forceinline__ int tj_descale(u32 x, int n) {
+  return ((int)(x + (1u << (n - 1)))) >> n;
+}
+
+// One 8-point islow butterfly (jidctint.c), inputs in[0..7] at stride
+// `is`, outputs DESCALEd by `db` bits into out[0..7] at stride `os`.
+// Arithmetic wraps modulo 2^32 like jnp's and torch's int32 (it is done
+// in uint32_t; only DESCALE's shift is signed).
+__device__ __forceinline__ void tj_idct_1d(const int* in, int is, int* out, int os, int db) {
+  u32 s0 = in[0 * is], s1 = in[1 * is], s2 = in[2 * is], s3 = in[3 * is];
+  u32 s4 = in[4 * is], s5 = in[5 * is], s6 = in[6 * is], s7 = in[7 * is];
+  u32 z1 = (s2 + s6) * 4433u;
+  u32 tmp2 = z1 + s6 * (u32)(-15137);
+  u32 tmp3 = z1 + s2 * 6270u;
+  u32 tmp0 = (s0 + s4) << 13;
+  u32 tmp1 = (s0 - s4) << 13;
+  u32 tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+  u32 tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+  u32 t0 = s7, t1 = s5, t2 = s3, t3 = s1;
+  u32 a1 = t0 + t3, a2 = t1 + t2, a3 = t0 + t2, a4 = t1 + t3;
+  u32 z5 = (a3 + a4) * 9633u;
+  t0 *= 2446u;
+  t1 *= 16819u;
+  t2 *= 25172u;
+  t3 *= 12299u;
+  a1 *= (u32)(-7373);
+  a2 *= (u32)(-20995);
+  a3 = a3 * (u32)(-16069) + z5;
+  a4 = a4 * (u32)(-3196) + z5;
+  t0 += a1 + a3;
+  t1 += a2 + a4;
+  t2 += a2 + a3;
+  t3 += a1 + a4;
+  out[0 * os] = tj_descale(tmp10 + t3, db);
+  out[1 * os] = tj_descale(tmp11 + t2, db);
+  out[2 * os] = tj_descale(tmp12 + t1, db);
+  out[3 * os] = tj_descale(tmp13 + t0, db);
+  out[4 * os] = tj_descale(tmp13 - t0, db);
+  out[5 * os] = tj_descale(tmp12 - t1, db);
+  out[6 * os] = tj_descale(tmp11 - t2, db);
+  out[7 * os] = tj_descale(tmp10 - t3, db);
+}
+
+// islow IDCT of one dequantized natural-order block (columns, then rows),
+// +128 and clamp, stored as 8 rows of 8 u8 samples at dst, `pitch` bytes
+// apart (dst and pitch 8-byte aligned). Kernels A and 6 share it.
+__device__ __forceinline__ void tj_idct_islow_store(const int* coef, uint8_t* dst, size_t pitch) {
+  int ws[64];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) tj_idct_1d(coef + c, 8, ws + c, 8, 11);
+  for (int r = 0; r < 8; ++r) {
+    int o[8];
+    tj_idct_1d(ws + r * 8, 1, o, 1, 18);
+    unsigned long long packed = 0ull;
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      packed |= (unsigned long long)tj_clamp_u8((int)((u32)o[c] + 128u)) << (8 * c);
+    *(unsigned long long*)(dst + (size_t)r * pitch) = packed;
+  }
+}
+
 // YCbCr -> RGB for one pixel into o[0..2].
 __device__ __forceinline__ void tj_ycc_rgb(int y, int cb, int cr, uint8_t* o) {
   cb -= 128;

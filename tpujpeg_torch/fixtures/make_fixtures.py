@@ -7,7 +7,10 @@ holds the port to, are made where PIL is installed and committed:
     python tpujpeg_torch/fixtures/make_fixtures.py
 
 Each file is a ``tests/corpus.py`` call; ``manifest.json`` records the
-call, the decoded shape and the sha256 of PIL's decoded bytes.
+call, the path that takes it (``fused``: a restart-segmented single
+scan, kernel A; ``staged``: progressive, marker-free or multi-scan,
+the coefficient path), the decoded shape and the sha256 of PIL's
+decoded bytes.
 ``tests/test_torch_fixtures.py`` checks the manifest against PIL.
 
 ``faults`` in the manifest names the corruptions ``chip_smoke.py``
@@ -25,15 +28,22 @@ import sys
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(os.path.dirname(HERE))
 
-# name -> make_jpeg keyword arguments. "420_2048" is bench.py's corpus
-# shape (2048^2, q85, 4:2:0, restart every 4 MCUs, first seed).
+# name -> corpus keyword arguments (make_jpeg unless "maker" names
+# another generator). "420_2048" is bench.py's corpus shape (2048^2, q85,
+# 4:2:0, restart every 4 MCUs, first seed); "prog_2048" and "norst_2048"
+# are the same image written progressive and without restart markers.
 FIXTURES = {
     "420_2048": dict(w=2048, h=2048, seed=7, quality=85, subsampling=2, restart_blocks=4),
     "420_odd": dict(w=129, h=65, seed=9, quality=85, subsampling=2, restart_blocks=3),
     "422": dict(w=512, h=384, seed=11, quality=85, subsampling=1, restart_blocks=4),
     "444": dict(w=512, h=384, seed=12, quality=85, subsampling=0, restart_blocks=4),
     "gray": dict(w=512, h=384, seed=13, quality=85, mode="L", restart_blocks=4),
+    "prog_2048": dict(w=2048, h=2048, seed=7, quality=85, subsampling=2, progressive=True),
+    "norst_2048": dict(w=2048, h=2048, seed=7, quality=85, subsampling=2),
+    "multiscan": dict(maker="make_multiscan_jpeg", w=512, h=384, seed=9, subsampling=2,
+                      restart_blocks=4),
 }
+STAGED = ("prog_2048", "norst_2048", "multiscan")
 
 # One member of a batch of `batch` copies of `fixture` gets its scan
 # payload (restart markers included) overwritten with `fill` bytes; the
@@ -46,25 +56,27 @@ FAULTS = [
 
 def call_text(kw) -> str:
     kw = dict(kw)
-    w, h = kw.pop("w"), kw.pop("h")
-    return f"make_jpeg({w}, {h}, " + ", ".join(f"{k}={v!r}" for k, v in kw.items()) + ")"
+    maker, w, h = kw.pop("maker", "make_jpeg"), kw.pop("w"), kw.pop("h")
+    return f"{maker}({w}, {h}, " + ", ".join(f"{k}={v!r}" for k, v in kw.items()) + ")"
 
 
 def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "tests"))
-    from corpus import make_jpeg, pil_decode
+    import corpus
 
     entries = {}
     for name, kw in FIXTURES.items():
         args = dict(kw)
+        maker = getattr(corpus, args.pop("maker", "make_jpeg"))
         w, h = args.pop("w"), args.pop("h")
-        data = make_jpeg(w, h, **args)
+        data = maker(w, h, **args)
         with open(os.path.join(HERE, f"{name}.jpg"), "wb") as f:
             f.write(data)
-        img = pil_decode(data)
+        img = corpus.pil_decode(data)
         entries[name] = dict(
             file=f"{name}.jpg",
             call=call_text(kw),
+            path="staged" if name in STAGED else "fused",
             shape=list(img.shape),
             file_sha256=hashlib.sha256(data).hexdigest(),
             pil_sha256=hashlib.sha256(img.tobytes()).hexdigest(),

@@ -2,7 +2,8 @@
 
 ``csrc/*.cu`` compile into one shared library with a plain C interface
 (no PyTorch headers, so the build takes seconds), at first use, into
-``tpujpeg_torch/_build/``; the file name carries a hash of the sources
+``tpujpeg_torch/_build/``: one nvcc per source, all started together,
+then one link; the file name carries a hash of the sources
 and flags, so an edit triggers exactly one rebuild (the scheme of
 ``tpujpeg/native/build.py``). Every C entry point launches on the stream
 it is given and returns ``cudaGetLastError()``; ``raise_on_error`` turns
@@ -31,7 +32,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
-FLAGS = [ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+FLAGS = [ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
 
@@ -51,6 +52,18 @@ _SIGNATURES = {
         _P, _P, _I, _I, _I, _I,  # blk, comp, B, nq, n_planes, mcus_x
         _P, _P, _P, _P,          # planes 0..3
         _P, _P,                  # err, stream
+    ],
+    "tj_wavefront_coeff": [
+        _P, _I, _I,              # bits, W, P
+        _P, _P, _P, _I,          # seg_bits, lane_m, lane_meta, L
+        _P, _P,                  # tables, huffval
+        _P, _P, _I, _I, _I,      # blk, comp, B, n_planes, mcus_x
+        _P, _P, _P, _P,          # coefficient arrays 0..3
+        _P, _P,                  # err, stream
+    ],
+    "tj_dequant_idct_islow": [
+        _P, _P, _I, _P,          # coef, qtab, per_image_q, dc
+        _I, _I, _I, _P, _P,      # N, padded_hb, padded_wb, out, stream
     ],
     "tj_upsample_color_h2v2": [
         _P, _L, _L, _P, _L, _L, _P, _L, _L,  # y, cb, cr: pointer, image stride, row stride
@@ -97,14 +110,35 @@ def build(verbose: bool = False) -> str:
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
+    tag = f"{os.path.basename(so)[:-3]}.{os.getpid()}"
+    ptxas = ["-Xptxas", "-v"] if verbose else []
+    objs, procs = [], []
+    for src in [s for s in _sources() if s.endswith(".cu")]:
+        obj = os.path.join(BUILD_DIR, f"{tag}.{os.path.basename(src)}.o")
+        cmd = [_nvcc(), *FLAGS, *ptxas, "-c", "-o", obj, src]
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True)))
+        objs.append(obj)
     tmp = f"{so}.tmp{os.getpid()}"
-    cmd = [_nvcc(), *FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{res.stdout}\n{res.stderr}")
-    if verbose:
-        print(res.stdout + res.stderr)
+    try:
+        for cmd, proc in procs:
+            out = proc.communicate()[0]
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{out}")
+            if verbose:
+                print(out)
+        cmd = [_nvcc(), ARCH, "-shared", "-o", tmp, *objs]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({' '.join(cmd)}):\n{res.stdout}\n{res.stderr}")
+    finally:
+        for _cmd, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            if os.path.exists(obj):
+                os.unlink(obj)
     os.replace(tmp, so)
     for old in glob.glob(os.path.join(BUILD_DIR, "libtpujpeg_torch_*.so")):
         if old != so:

@@ -1,22 +1,28 @@
-"""Fused baseline decode: restart segments as lanes, Huffman + dequant +
-islow IDCT straight to raster component planes.
+"""Baseline decode with restart segments as lanes: Huffman + dequant +
+islow IDCT straight to raster component planes (kernel A), or Huffman to
+zigzag coefficient blocks at their raster block index (kernel 2).
 
-Port of the main-path part of ``tpujpeg/kernels/wavefront_pallas.py``:
-the lane planner (``build_block_plan``), the per-lane error mapping
-(``failures_from_err``/``resolve_rgb_errors``) and the
-``_make_kernel(emit="pixels")`` Pallas kernel, which becomes the CUDA
-kernel ``tj_wavefront_pixels`` in ``csrc/wavefront.cu``. Its plain
-version, ``decode_lanes_plain``, is a lane-vectorized torch state
-machine with the same steps as the Pallas kernel; the wrapper
-``decode_lanes_to_planes`` takes it only for tensors on the CPU.
+Port of the restart-segment part of
+``tpujpeg/kernels/wavefront_pallas.py``: the lane planner
+(``build_block_plan``), the per-lane error mapping
+(``failures_from_err``/``resolve_rgb_errors``), the
+``_make_kernel`` Pallas kernel with ``emit="pixels"`` and
+``emit="coeff"``, which become the CUDA kernels ``tj_wavefront_pixels``
+and ``tj_wavefront_coeff`` in ``csrc/wavefront.cu``, and the coefficient
+entries ``decode_batch_to_device``, ``decode_multiscan_to_device`` and
+``decode_all_scans``. The plain version of both kernels,
+``decode_lanes_plain``, is a lane-vectorized torch state machine with
+the same steps as the Pallas kernel; the wrappers
+``decode_lanes_to_planes`` and ``decode_lanes_to_coeffs`` take it only
+for tensors on the CPU.
 
 The TPU layout does not carry over: lanes are a flat [L] axis (no
 [G, 8, K] sublane groups), each lane reads its own row of words from
-device memory, and the kernel stores u8 samples at their raster
-positions, so there is no assembly pass. The planner still keeps the
-reference's scope (row width rule, ``MAX_WORDS``, ``MAX_QSETS``, one
-table set per batch) so that both decoders accept and reject the same
-batches.
+device memory, and the kernels store samples or coefficient blocks at
+their raster positions, so there is no assembly pass. The planner still
+keeps the reference's scope (row width rule, ``MAX_WORDS``, one table
+set per batch; ``MAX_QSETS`` in the fused entry) so that both decoders
+accept and reject the same batches.
 """
 
 from __future__ import annotations
@@ -27,17 +33,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import bitstream
 from .. import transform as T
-from ..host import (
-    DEFAULT_CONFIG,
-    DecodeConfig,
-    JpegHuffmanError,
-    JpegSyntaxError,
-    JpegTruncatedError,
-    JpegUnsupportedError,
-    bitstream,
-    native_entropy,
-)
+from ..config import DEFAULT_CONFIG, DecodeConfig
+from ..errors import JpegHuffmanError, JpegSyntaxError, JpegTruncatedError, JpegUnsupportedError
+from ..native import entropy as native_entropy
 from . import build
 
 MAX_WORDS = 512   # per-lane row cap, the reference's (lifted by a later slice)
@@ -50,7 +50,6 @@ _ERR_TRUNC = 4
 # Where each unsupported stream shape will be handled.
 _LATER_NORST = "marker-free and oversize-segment streams arrive with the marker-free slice"
 _LATER_PROG = "progressive streams arrive with the progressive slice"
-_LATER_STAGED = "arrives with the staged coefficient path"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,10 +160,12 @@ def build_block_plan(jpegs: Sequence) -> LanePlan:
     """Flat lane plan for a uniform batch of parsed baseline JPEGs.
 
     Raises JpegUnsupportedError on exactly the batches the reference's
-    fused path rejects, in the reference's order: progressive, mixed
+    planner rejects, in the reference's order: progressive, mixed
     geometry, more than one scan, a non-interleaved multi-component
-    scan, mixed Huffman tables, a segment over MAX_WORDS words, and more
-    than MAX_QSETS quantizer sets."""
+    scan, mixed Huffman tables and a segment over MAX_WORDS words. More
+    than MAX_QSETS quantizer sets is the fused entry's limit
+    (``decode_batch_to_rgb``), as in the reference; the coefficient
+    kernel takes no quantizers."""
     if not jpegs:
         raise JpegUnsupportedError("empty batch")
     f0 = jpegs[0].frame
@@ -194,11 +195,11 @@ def build_block_plan(jpegs: Sequence) -> LanePlan:
         if key != key0:
             raise JpegUnsupportedError("mixed geometry in one batch: batch buckets arrive later")
         if len(jpeg.scans) != 1:
-            raise JpegUnsupportedError(f"one scan only: multi-scan {_LATER_STAGED}")
+            raise JpegUnsupportedError("one scan only: multi-scan files take decode_multiscan_to_device")
         scan = jpeg.scans[0]
         if not scan.interleaved and frame.n_components != 1:
             raise JpegUnsupportedError(
-                f"non-interleaved multi-component scan {_LATER_STAGED}"
+                "non-interleaved multi-component scan in a one-scan file"
             )
 
         tables: List[Tuple[int, CanonTable, CanonTable]] = []
@@ -219,7 +220,7 @@ def build_block_plan(jpegs: Sequence) -> LanePlan:
             blk_tables = tables_t
         elif blk_tables != tables_t:
             raise JpegUnsupportedError(
-                f"mixed Huffman tables in one batch {_LATER_STAGED}"
+                "mixed Huffman tables in one batch: decode the images in separate batches"
             )
 
         qkey = tuple(jpeg.qtables[frame.components[ci].tq].tobytes() for ci, _d, _a in tables)
@@ -258,10 +259,6 @@ def build_block_plan(jpegs: Sequence) -> LanePlan:
     if max_words > MAX_WORDS:
         raise JpegUnsupportedError(
             f"segment too long ({max_words} words): {_LATER_NORST}"
-        )
-    if len(qset_values) > MAX_QSETS:
-        raise JpegUnsupportedError(
-            f"more than {MAX_QSETS} distinct quantizer sets in one batch"
         )
     # The reference's row width: the longest stuffed segment, in 32-word steps.
     W = -(-max_words // 32) * 32
@@ -370,14 +367,19 @@ class PlaneLayout:
             blk += [(ci, sp, dv, dh) for dv in range(v) for dh in range(h)]
         return cls(mcus_x, tuple(blk), tuple(comp), out_order)
 
-    def alloc(self, n: int, device) -> List[torch.Tensor]:
-        """Zeroed uint8[n, plane_h, plane_w] planes, one per scan component."""
+    def alloc(self, n: int, device, emit: str = "pixels") -> List[torch.Tensor]:
+        """Zeroed outputs, one per scan component: uint8 [n, plane_h,
+        plane_w] planes, or with ``emit="coeff"`` int32 [n, plane_h/8 *
+        plane_w/8, 64] coefficient blocks."""
+        if emit == "coeff":
+            return [torch.zeros((n, ph // 8 * (pw // 8), 64), dtype=torch.int32, device=device)
+                    for _h, _v, ph, pw in self.comp]
         return [torch.zeros((n, ph, pw), dtype=torch.uint8, device=device)
                 for _h, _v, ph, pw in self.comp]
 
 
 # ---------------------------------------------------------------------------
-# Plain version of kernel A
+# Plain version of kernels A and 2
 # ---------------------------------------------------------------------------
 
 
@@ -406,14 +408,19 @@ def _decode_symbol(win: torch.Tensor, mc, vo, huffval: torch.Tensor):
     return huffval[idx.clamp(0, 255)], length
 
 
-def decode_lanes_plain(plan: LanePlan, layout: PlaneLayout,
-                       planes: Sequence[torch.Tensor], err: torch.Tensor) -> None:
-    """Kernel A's plain torch version on the plan's device: all lanes
-    step together, one MCU round and block position at a time (one DC
-    step for all lanes, then an AC loop masked per lane), then dequant,
-    un-zigzag, islow IDCT, +128 and clamp, and a scatter of the 8x8
-    tiles into ``planes[sp]`` (uint8[N, plane_h, plane_w]). Writes the
-    per-lane error bits into ``err`` (int32[L])."""
+def decode_lanes_plain(plan: LanePlan, layout: PlaneLayout, outs: Sequence[torch.Tensor],
+                       err: torch.Tensor, emit: str = "pixels") -> None:
+    """Kernels A and 2's plain torch version on the plan's device: all
+    lanes step together, one MCU round and block position at a time (one
+    DC step for all lanes, then an AC loop masked per lane). Then, for
+    ``emit="pixels"`` (kernel A), dequant, un-zigzag, islow IDCT, +128
+    and clamp, and a scatter of the 8x8 tiles into ``outs[sp]``
+    (uint8 [N, plane_h, plane_w]); for ``emit="coeff"`` (kernel 2), the
+    zigzag block with its absolute DC into ``outs[sp][img, block row *
+    padded_wb + block column]`` (int32 [N, padded_hb*padded_wb, 64]).
+    Writes the per-lane error bits into ``err`` (int32[L])."""
+    if emit not in ("pixels", "coeff"):
+        raise ValueError(f"emit {emit!r}")
     dev = plan.bits.device
     L, W = plan.bits.shape
     P = 1 << max(W - 1, 1).bit_length()
@@ -423,7 +430,8 @@ def decode_lanes_plain(plan: LanePlan, layout: PlaneLayout,
     lane_m = plan.lane_m.to(torch.int64)
     img = plan.lane_meta[:, 0].to(torch.int64)
     first = plan.lane_meta[:, 1].to(torch.int64)
-    qlane = plan.qsets[plan.lane_qset.to(torch.int64)]          # [L, B, 64]
+    if emit == "pixels":
+        qlane = plan.qsets[plan.lane_qset.to(torch.int64)]      # [L, B, 64]
     r8 = torch.arange(8, device=dev)
 
     def load(w):
@@ -469,10 +477,10 @@ def decode_lanes_plain(plan: LanePlan, layout: PlaneLayout,
                 run, size = rs >> 4, rs & 0x0F
                 val = _receive_extend(win, alen, size)
                 nk = k + torch.where(size > 0, run, 0)
-                emit = busy & (size > 0) & (nk <= 63)
+                emit_ok = busy & (size > 0) & (nk <= 63)
                 # Each slot is written at most once per block (k only
                 # grows), so adding into the zeroed block sets it.
-                coef.scatter_add_(1, nk.clamp(0, 63)[:, None], torch.where(emit, val, 0)[:, None])
+                coef.scatter_add_(1, nk.clamp(0, 63)[:, None], torch.where(emit_ok, val, 0)[:, None])
                 cur = cur + torch.where(busy, alen + size, 0)
                 is_eob = (size == 0) & (run != 15)
                 is_zrl = (size == 0) & (run == 15)
@@ -483,56 +491,88 @@ def decode_lanes_plain(plan: LanePlan, layout: PlaneLayout,
                 e = torch.where(busy & (size > 0) & (nk > 63), _ERR_RUN, e)
                 busy = ok & (k < 64) & (e == 0)
             coef[:, 0] = torch.where(ok, pred[ci], 0)
-            # Epilogue: int32 arithmetic that wraps, as the reference's.
-            deq = T.dequantize(coef.to(torch.int32), qlane[:, b])
-            tile = T.idct8x8_islow(deq)
             sel = torch.nonzero(active)[:, 0]
-            if sel.numel():
-                h, v = layout.comp[sp][0], layout.comp[sp][1]
-                rows = ((my[sel] * v + dv) * 8)[:, None, None] + r8[None, :, None]
-                cols = ((mx[sel] * h + dh) * 8)[:, None, None] + r8[None, None, :]
-                planes[sp][img[sel][:, None, None], rows, cols] = tile[sel]
+            if not sel.numel():
+                continue
+            h, v, ph, pw = layout.comp[sp]
+            brow, bcol = my[sel] * v + dv, mx[sel] * h + dh
+            if emit == "coeff":
+                outs[sp][img[sel], brow * (pw // 8) + bcol] = coef[sel].to(torch.int32)
+                continue
+            # Epilogue: int32 arithmetic that wraps, as the reference's.
+            deq = T.dequantize(coef[sel].to(torch.int32), qlane[sel, b])
+            tile = T.idct8x8_islow(deq)
+            rows = (brow * 8)[:, None, None] + r8[None, :, None]
+            cols = (bcol * 8)[:, None, None] + r8[None, None, :]
+            outs[sp][img[sel][:, None, None], rows, cols] = tile
     trunc = (cur > plan.seg_bits.to(torch.int64) + 7) & (lane_m > 0)
     err.copy_((e | torch.where(trunc, _ERR_TRUNC, 0)).to(torch.int32))
 
 
 # ---------------------------------------------------------------------------
-# Kernel A wrapper
+# Kernel A and kernel 2 wrappers
 # ---------------------------------------------------------------------------
 
 
-def _launch_wavefront(plan: LanePlan, layout: PlaneLayout,
-                      planes: Sequence[torch.Tensor], err: torch.Tensor) -> None:
+def _launch_wavefront(plan: LanePlan, layout: PlaneLayout, outs: Sequence[torch.Tensor],
+                      err: torch.Tensor, emit: str = "pixels") -> None:
     lib = build.get_lib()
     dev = plan.bits.device
     B = plan.blocks_per_mcu
     nq = int(plan.qsets.shape[0])
-    # Quantizers in natural order: the kernel keeps each block natural.
-    q_nat = plan.qsets[:, :, T.NATURAL_TO_ZIGZAG.to(dev)].contiguous()
+    name = "wavefront_" + emit
     blk = torch.tensor(layout.blk, dtype=torch.int32, device=dev)
     comp = torch.tensor(layout.comp, dtype=torch.int32, device=dev)
-    ptrs = [p.data_ptr() for p in planes] + [0] * (4 - len(planes))
+    ptrs = [o.data_ptr() for o in outs] + [0] * (4 - len(outs))
+    out_spec = (torch.uint8, 3) if emit == "pixels" else (torch.int32, 3)
     build.check_args(
-        "wavefront_pixels", dev,
+        name, dev,
         [(plan.bits, torch.int32, 2), (plan.seg_bits, torch.int32, 1),
          (plan.lane_m, torch.int32, 1), (plan.lane_qset, torch.int32, 1),
          (plan.lane_meta, torch.int32, 2), (plan.tables, torch.int32, 3),
          (plan.huffval, torch.uint8, 3), (err, torch.int32, 1)]
-        + [(p, torch.uint8, 3) for p in planes],
+        + [(o, *out_spec) for o in outs],
     )
-    if B > 10 or nq > MAX_QSETS or len(planes) > 4:
-        raise ValueError(f"wavefront_pixels: B={B}, nq={nq}, planes={len(planes)} out of range")
+    if B > 10 or len(outs) > 4 or (emit == "pixels" and nq > MAX_QSETS):
+        raise ValueError(f"{name}: B={B}, nq={nq}, outputs={len(outs)} out of range")
     L, W = plan.bits.shape
-    rc = lib.tj_wavefront_pixels(
-        plan.bits.data_ptr(), W, 1 << max(W - 1, 1).bit_length(),
-        plan.seg_bits.data_ptr(), plan.lane_m.data_ptr(), plan.lane_qset.data_ptr(),
-        plan.lane_meta.data_ptr(), L,
-        plan.tables.data_ptr(), plan.huffval.data_ptr(), q_nat.data_ptr(),
-        blk.data_ptr(), comp.data_ptr(), B, nq, len(planes), layout.mcus_x,
-        *ptrs, err.data_ptr(), build.stream_of(dev),
-    )
-    build.raise_on_error(rc, "wavefront_pixels")
-    build.LAUNCHES["wavefront_pixels"] += 1
+    P = 1 << max(W - 1, 1).bit_length()
+    if emit == "pixels":
+        # Quantizers in natural order: the kernel keeps each block natural.
+        q_nat = plan.qsets[:, :, T.NATURAL_TO_ZIGZAG.to(dev)].contiguous()
+        rc = lib.tj_wavefront_pixels(
+            plan.bits.data_ptr(), W, P,
+            plan.seg_bits.data_ptr(), plan.lane_m.data_ptr(), plan.lane_qset.data_ptr(),
+            plan.lane_meta.data_ptr(), L,
+            plan.tables.data_ptr(), plan.huffval.data_ptr(), q_nat.data_ptr(),
+            blk.data_ptr(), comp.data_ptr(), B, nq, len(outs), layout.mcus_x,
+            *ptrs, err.data_ptr(), build.stream_of(dev),
+        )
+    else:
+        rc = lib.tj_wavefront_coeff(
+            plan.bits.data_ptr(), W, P,
+            plan.seg_bits.data_ptr(), plan.lane_m.data_ptr(), plan.lane_meta.data_ptr(), L,
+            plan.tables.data_ptr(), plan.huffval.data_ptr(),
+            blk.data_ptr(), comp.data_ptr(), B, len(outs), layout.mcus_x,
+            *ptrs, err.data_ptr(), build.stream_of(dev),
+        )
+    build.raise_on_error(rc, name)
+    build.LAUNCHES[name] += 1
+
+
+def _decode_lanes(plan: LanePlan, geoms: Sequence[ImageGeom], device, plain: bool, emit: str):
+    device = torch.device(device)
+    layout = PlaneLayout.of(geoms[0])
+    plan = plan.to(device)
+    outs = layout.alloc(len(geoms), device, emit)
+    err = torch.zeros(plan.n_lanes, dtype=torch.int32, device=device)
+    if plain or device.type == "cpu":
+        decode_lanes_plain(plan, layout, outs, err, emit)
+    elif device.type == "cuda":
+        _launch_wavefront(plan, layout, outs, err, emit)
+    else:
+        raise ValueError(f"no decode path for device {device}")
+    return [outs[sp] for sp in layout.out_order], err
 
 
 def decode_lanes_to_planes(
@@ -544,24 +584,24 @@ def decode_lanes_to_planes(
     and the per-lane error bits int32[L]. On a CUDA device this launches
     kernel A; on the CPU it runs the plain version. ``plain=True`` runs
     the plain version on any device, to hold the kernel to it."""
-    device = torch.device(device)
-    layout = PlaneLayout.of(geoms[0])
-    plan = plan.to(device)
-    planes = layout.alloc(len(geoms), device)
-    err = torch.zeros(plan.n_lanes, dtype=torch.int32, device=device)
-    if plain:
-        decode_lanes_plain(plan, layout, planes, err)
-    elif device.type == "cuda":
-        _launch_wavefront(plan, layout, planes, err)
-    elif device.type == "cpu":
-        decode_lanes_plain(plan, layout, planes, err)
-    else:
-        raise ValueError(f"no decode path for device {device}")
-    return [planes[sp] for sp in layout.out_order], err
+    return _decode_lanes(plan, geoms, device, plain, "pixels")
+
+
+def decode_lanes_to_coeffs(
+    plan: LanePlan, geoms: Sequence[ImageGeom], device, *, plain: bool = False
+) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """Decode every lane of `plan` on `device` to coefficients. Returns
+    (coeffs, err): per scan component (frame component order for an
+    interleaved scan), int32 [N, padded_hb*padded_wb, 64] zigzag blocks
+    with absolute DCs, the reference's ``assemble`` layout (pad blocks of
+    a non-interleaved grid stay 0), and the per-lane error bits int32[L].
+    On a CUDA device this launches kernel 2; on the CPU it runs the
+    plain version; ``plain=True`` runs the plain version on any device."""
+    return _decode_lanes(plan, geoms, device, plain, "coeff")
 
 
 # ---------------------------------------------------------------------------
-# Errors and the public entry
+# Errors and the public entries
 # ---------------------------------------------------------------------------
 
 
@@ -591,8 +631,8 @@ def failures_from_err(errs: np.ndarray, lane_meta: np.ndarray) -> Dict[int, Exce
 
 
 def resolve_rgb_errors(err: torch.Tensor, plan: LanePlan) -> Dict[int, Exception]:
-    """Read back decode_lanes_to_planes' error vector and map it to
-    per-image failures."""
+    """Read back a decode's error vector and map it to per-image
+    failures."""
     errs = err.cpu().numpy().reshape(-1)[: plan.n_lanes]
     return failures_from_err(errs, plan.lane_meta.cpu().numpy())
 
@@ -601,14 +641,95 @@ def decode_batch_to_rgb(
     jpegs: Sequence, config: DecodeConfig = DEFAULT_CONFIG, device="cuda"
 ) -> Tuple[torch.Tensor, Dict[int, Exception]]:
     """Fused decode of a uniform batch of parsed baseline JPEGs
-    (``host.bitstream.parse``) on `device`: kernel A to component
+    (``tpujpeg_torch.bitstream.parse``) on `device`: kernel A to component
     planes, then upsample + color. Returns ([N, H, W, 3] or [N, H, W]
     uint8 on `device`, {image index: exception})."""
     from . import pipeline
 
     plan = build_block_plan(jpegs)
+    if int(plan.qsets.shape[0]) > MAX_QSETS:
+        raise JpegUnsupportedError(
+            f"fused pixels mode takes at most {MAX_QSETS} distinct quantizer sets per batch"
+        )
     geoms = [ImageGeom.of(j) for j in jpegs]
     planes, err = decode_lanes_to_planes(plan, geoms, device)
     color = bitstream.color_space(jpegs[0])
     rgb = pipeline.transform_planes_batch(jpegs[0].frame, planes, config, color=color)
     return rgb, resolve_rgb_errors(err, plan)
+
+
+def decode_batch_to_device(
+    jpegs: Sequence, config: DecodeConfig = DEFAULT_CONFIG, strict: bool = True, device="cuda"
+) -> Tuple[List[Optional[List[torch.Tensor]]], Dict[int, Exception]]:
+    """Coefficient decode of a uniform batch of parsed baseline JPEGs on
+    `device` (kernel 2). Returns (per image, per frame component, int32
+    [padded_blocks, 64] zigzag coefficients on `device`, or None for a
+    failed image; {image index: exception}). With `strict`, the first
+    failure raises instead. The per-image tensors are views of one
+    [N, padded_blocks, 64] array per component."""
+    plan = build_block_plan(jpegs)
+    geoms = [ImageGeom.of(j) for j in jpegs]
+    coeffs, err = decode_lanes_to_coeffs(plan, geoms, device)
+    failures = resolve_rgb_errors(err, plan)
+    if strict and failures:
+        raise failures[min(failures)]
+    results: List[Optional[List[torch.Tensor]]] = [
+        None if i in failures else [c[i] for c in coeffs] for i in range(len(jpegs))
+    ]
+    return results, failures
+
+
+def decode_multiscan_to_device(jpeg, config: DecodeConfig = DEFAULT_CONFIG,
+                               device="cuda") -> List[torch.Tensor]:
+    """A baseline frame split into per-component non-interleaved scans:
+    each scan decodes with kernel 2 as its own one-component frame over
+    the component's (dwidth, dheight) sample grid, and its block grid is
+    padded with zero blocks into the frame's MCU-padded grid. Returns per
+    frame component int32 [padded_blocks, 64] zigzag coefficients on
+    `device`. Raises on data errors; a scan whose segments exceed the
+    lane row raises JpegUnsupportedError naming the marker-free slice."""
+    frame = jpeg.frame
+    grids: Dict[int, torch.Tensor] = {}
+    for scan in jpeg.scans:
+        if scan.n_comps != 1:
+            raise JpegUnsupportedError("interleaved sub-scan in a multi-scan file")
+        ci = scan.comp_indices[0]
+        c = frame.components[ci]
+        subframe = bitstream.Frame(
+            progressive=False, precision=frame.precision, height=c.dheight, width=c.dwidth,
+            components=[bitstream.Component(index=0, cid=c.cid, h=1, v=1, tq=c.tq)],
+        )
+        subframe.finalize()
+        sub = bitstream.JpegData(
+            frame=subframe, scans=[dataclasses.replace(scan, comp_indices=[0])],
+            qtables=jpeg.qtables, restart_interval=scan.restart_interval,
+        )
+        comps, _ = decode_batch_to_device([sub], config, strict=True, device=device)
+        sc = subframe.components[0]
+        grid = comps[0][0].reshape(sc.padded_hb, sc.padded_wb, 64)
+        grid = torch.nn.functional.pad(
+            grid, (0, 0, 0, c.padded_wb - sc.padded_wb, 0, c.padded_hb - sc.padded_hb)
+        )
+        grids[ci] = grid.reshape(-1, 64)
+    out: List[torch.Tensor] = []
+    for ci in range(frame.n_components):
+        if ci not in grids:
+            raise JpegTruncatedError(f"multi-scan file has no scan for component {ci}")
+        out.append(grids[ci])
+    return out
+
+
+def decode_all_scans(jpeg, config: DecodeConfig = DEFAULT_CONFIG,
+                     device="cuda") -> List[torch.Tensor]:
+    """The wavefront entropy engine for one image: per frame component,
+    int32 [padded_blocks, 64] zigzag coefficients on `device`, from
+    kernel 2. Baseline only: progressive streams raise
+    JpegUnsupportedError naming the progressive slice, and streams whose
+    segments exceed the lane row (marker-free files, huge restart
+    intervals) raise naming the marker-free slice."""
+    if jpeg.frame.progressive:
+        raise JpegUnsupportedError(f"wavefront entropy engine: {_LATER_PROG}")
+    if len(jpeg.scans) > 1 and all(s.n_comps == 1 for s in jpeg.scans):
+        return decode_multiscan_to_device(jpeg, config, device)
+    comps, _ = decode_batch_to_device([jpeg], config, strict=True, device=device)
+    return comps[0]

@@ -19,7 +19,7 @@ from typing import List, Optional, Sequence
 
 import torch
 
-from .host import bitstream
+from . import bitstream
 
 # libjpeg jidctint.c fixed-point constants, CONST_BITS = 13.
 CONST_BITS = 13
