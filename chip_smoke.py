@@ -22,14 +22,14 @@ of tpujpeg/. Phases, one JSON line each:
    fixtures through the same entry, each counted apart: A and C, A and
    D, A alone. Decoded images hash to PIL's (manifest).
 5. staged: the same 32 images through the staged coefficient path,
-   decode_batch_to_device (kernel 2) then pipeline.transform_batch
+   decode_batch_to_coeffs (kernel 2) then pipeline.transform_batch
    (kernel 6, then kernel B), one warm-up and 3 timed runs, counted
    apart: kernels 2, 6 and B ran, A did not. The RGB equals the main
    path's byte for byte and PIL's hash.
 6. kernel_timing: each kernel and its plain version, timed with CUDA
    events on the main and staged paths' inputs and compared, beside
-   its bound (bytes over 3.35 TB/s or int32 operations over the card's
-   int32 rate, whichever is larger).
+   its bound (bytes over 3.35 TB/s or integer operations over the
+   card's issue rate, whichever is larger).
 7. faults: one corrupted member of a batch fails with the manifest's
    exception class; the other members stay bit-exact.
 8. decode: tpujpeg_torch.decode of fused fixtures, and of the staged
@@ -67,11 +67,15 @@ KERNELS = {
     "color_444": ("tpujpeg_torch/csrc/sample_color.cu", "tpujpeg/kernels/sample_color.py:160"),
 }
 
-# The card's roofs for bound_ms: HBM3 at 3.35 TB/s, and int32 ALU work
-# at 132 SMs x 64 INT32 lanes x 1.98 GHz (half the float32 lanes behind
-# the 67 TFLOP/s figure of NVIDIA's data sheet; one op per lane-cycle).
+# The card's roofs for bound_ms: HBM3 at 3.35 TB/s, and integer work at
+# the issue rate of 132 SMs x 128 lanes x 1.98 GHz with two operations
+# per lane-cycle: 66.9 T op/s, the data sheet's 67 TFLOP/s float32 figure.
+# Integer code issues on both the ALU and the FMA pipe (IMAD), and the
+# counts below take each multiply, add and shift apart, which the
+# hardware fuses in pairs (IMAD, IADD3, LEA), so two per lane-cycle is
+# the peak for these counts.
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
+INT32_OPS_PER_S = 132 * 128 * 2 * 1.98e9
 # int32 operations each kernel needs, counted from the CUDA sources:
 # one 8-point islow butterfly (tj_idct_1d) is 62, so one block's
 # dequant (64) + 16 butterflies (992) + level shift, clamp and byte
@@ -312,8 +316,7 @@ def main() -> int:
     for i in range(4):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        results, failures = tpujpeg_torch.decode_batch_to_device(jpegs, config, device=dev)
-        coeffs = [torch.stack([r[ci] for r in results]) for ci in range(frame.n_components)]
+        coeffs, failures = tpujpeg_torch.decode_batch_to_coeffs(jpegs, config, strict=False, device=dev)
         rgb = pipeline.transform_batch(frame, coeffs, qtabs, config)
         torch.cuda.synchronize()
         if i:
@@ -336,7 +339,7 @@ def main() -> int:
     emit("staged", images=MAIN_BATCH, megapixels=mp, calls=4, wall_s=walls, wall_median_s=wall,
          mp_per_s=mp / wall, host_plan_s=t_plan, launches=staged_launches, coeff_bytes=coeff_bytes,
          blocks=blocks, symbols_lower_bound=symbols)
-    del rgb, fused_rgb, results
+    del rgb, fused_rgb
 
     # 6. Each kernel against its plain version on the main path's inputs.
     results = {}

@@ -22,6 +22,7 @@ import torch
 import tpujpeg_torch
 from tpujpeg_torch.kernels import build
 from tpujpeg_torch.kernels import idct
+from tpujpeg_torch.kernels import pipeline
 from tpujpeg_torch.kernels import sample_color as sc
 from tpujpeg_torch.kernels import wavefront as wf
 
@@ -149,6 +150,34 @@ def test_kernel_6_matches_plain(cuda, n, hb, wb, per_image_q, with_dc):
     assert build.LAUNCHES["dequant_idct_islow"] == before + 1
     assert torch.equal(got, idct.dequant_idct_islow_plain(args[0], args[1], hb, wb, args[2]))
     assert torch.equal(got.cpu(), idct.dequant_idct_islow_plain(c, q, hb, wb, dc))
+
+
+def test_kernel_6_refuses_misaligned_coefficients(cuda):
+    """Kernel 6 reads each block as 16 int4 words: a contiguous view that
+    starts off a 16-byte boundary raises before launching, and the
+    context stays usable."""
+    flat = torch.zeros(1 + 6 * 64, dtype=torch.int32, device=cuda)
+    before = build.LAUNCHES["dequant_idct_islow"]
+    with pytest.raises(ValueError, match="16-byte"):
+        idct.dequant_idct_islow(flat[1:].view(1, 6, 64), torch.ones(64, dtype=torch.int32, device=cuda), 2, 3)
+    assert build.LAUNCHES["dequant_idct_islow"] == before
+    got = idct.dequant_idct_islow(flat[:384].view(1, 6, 64), torch.ones(64, dtype=torch.int32, device=cuda), 2, 3)
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.full_like(got, 128))
+
+
+def test_staged_batch_on_card_matches_fused(cuda):
+    """decode_batch_to_coeffs (kernel 2) then transform_batch (kernel 6,
+    kernel B) gives the fused path's RGB; the per-image split is views."""
+    jpegs = [tpujpeg_torch.bitstream.parse(_read("420_odd")) for _ in range(3)]
+    coeffs, failures = tpujpeg_torch.decode_batch_to_coeffs(jpegs, device=cuda)
+    assert not failures
+    qtabs = [torch.from_numpy(jpegs[0].qtables[c.tq]).to(cuda) for c in jpegs[0].frame.components]
+    rgb = pipeline.transform_batch(jpegs[0].frame, coeffs, qtabs, tpujpeg_torch.DEFAULT_CONFIG)
+    fused, _ = tpujpeg_torch.decode_batch_to_rgb(jpegs, device=cuda)
+    assert torch.equal(rgb, fused)
+    per_image, _ = tpujpeg_torch.decode_batch_to_device(jpegs, device=cuda)
+    assert all(torch.equal(c, coeffs[ci][i]) for i, img in enumerate(per_image) for ci, c in enumerate(img))
 
 
 COLOR = [

@@ -14,7 +14,7 @@ from tpujpeg import bitstream as ref_bitstream
 from tpujpeg import transform as ref_T
 from tpujpeg.kernels import idct as ref_idct
 
-from tpujpeg_torch.kernels import idct
+from tpujpeg_torch.kernels import build, idct
 
 HB, WB = 32, 32  # one reference lane tile: 1024 blocks
 
@@ -92,6 +92,15 @@ def test_wrapper_rejects_bad_shapes():
         idct.dequant_idct_islow(c.to(torch.int64), torch.ones(64, dtype=torch.int32), 2, 3)
     with pytest.raises(ValueError):
         idct.dequant_idct_islow(c, torch.ones(64, dtype=torch.int32), 2, 3, torch.zeros((1, 5), dtype=torch.int32))
+
+
+def test_alignment_guard():
+    """The CUDA branch reads coefficients as int4 words: a view that does
+    not start on a 16-byte boundary is refused before any launch."""
+    flat = torch.zeros(1 + 6 * 64, dtype=torch.int32)
+    build.check_aligned("t", [flat[:64]])
+    with pytest.raises(ValueError, match="16-byte"):
+        build.check_aligned("t", [flat[1:].view(1, 6, 64)])
 
 
 def test_matmul_variant_close_to_reference():

@@ -178,6 +178,25 @@ def test_transform_batch_matmul_close_to_reference():
     assert (diff == 0).mean() >= 0.99
 
 
+def test_batch_coeffs_through_transform_equal_fused_path():
+    """The staged batch path, decode_batch_to_coeffs then transform_batch,
+    gives the fused path's RGB and PIL's; decode_batch_to_device's
+    per-image tensors are views of the same arrays."""
+    data = make_jpeg(40, 24, seed=5, subsampling=2, restart_blocks=2)
+    jpegs = [bitstream.parse(data) for _ in range(3)]
+    coeffs, failures = tpujpeg_torch.decode_batch_to_coeffs(jpegs, device="cpu")
+    assert not failures and [tuple(c.shape[:1]) for c in coeffs] == [(3,)] * 3
+    qtabs = [torch.from_numpy(jpegs[0].qtables[c.tq]) for c in jpegs[0].frame.components]
+    rgb = pipeline.transform_batch(jpegs[0].frame, coeffs, qtabs, DecodeConfig())
+    fused, _ = tpujpeg_torch.decode_batch_to_rgb(jpegs, device="cpu")
+    assert torch.equal(rgb, fused)
+    np.testing.assert_array_equal(rgb[2].numpy(), pil_decode(data))
+    per_image, _ = tpujpeg_torch.decode_batch_to_device(jpegs, device="cpu")
+    for i, img in enumerate(per_image):
+        for ci, c in enumerate(img):
+            assert torch.equal(c, coeffs[ci][i])
+
+
 STAGED = {
     "prog420": lambda: make_jpeg(64, 48, seed=1, subsampling=2, progressive=True),
     "prog444": lambda: make_jpeg(48, 40, seed=2, subsampling=0, progressive=True),

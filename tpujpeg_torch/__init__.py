@@ -12,6 +12,9 @@ Public API:
     decode(data, config, device)                  -> one image
     decode_file(path, config, device=...)         -> one image
     decode_batch_to_rgb(jpegs, config, device)    -> (uint8 [N, H, W, 3], failures)
+    decode_batch_to_coeffs(jpegs, config, strict, device)
+                                                  -> (per component int32
+                                                      [N, blocks, 64], failures)
     decode_batch_to_device(jpegs, config, strict, device)
                                                   -> (per image, per component
                                                       int32 [blocks, 64], failures)
@@ -31,13 +34,14 @@ from .errors import (
     JpegTruncatedError,
     JpegUnsupportedError,
 )
-from .kernels.wavefront import decode_batch_to_device, decode_batch_to_rgb
+from .kernels.wavefront import decode_batch_to_coeffs, decode_batch_to_device, decode_batch_to_rgb
 from .stats import DecodeStats
 
 __all__ = [
     "decode",
     "decode_file",
     "decode_batch_to_rgb",
+    "decode_batch_to_coeffs",
     "decode_batch_to_device",
     "bitstream",
     "DecodeConfig",

@@ -172,6 +172,16 @@ def raise_on_error(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
 
 
+def check_aligned(name: str, tensors: Sequence[torch.Tensor], nbytes: int = 16) -> None:
+    """Every tensor starts on an `nbytes` boundary, as a kernel that moves
+    it in int4 words needs (a misaligned access would leave a sticky
+    CUDA error in the context)."""
+    for i, t in enumerate(tensors):
+        if t.data_ptr() % nbytes:
+            raise ValueError(f"{name}: argument {i} starts at {t.data_ptr():#x}, "
+                             f"not on a {nbytes}-byte boundary")
+
+
 def check_args(name: str, device: torch.device,
                specs: Sequence[Tuple[torch.Tensor, torch.dtype, int]]) -> None:
     """Every tensor on `device`, of its dtype and rank, and contiguous."""

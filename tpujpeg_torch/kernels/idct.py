@@ -76,6 +76,7 @@ def dequant_idct_islow(coeffs: torch.Tensor, qtab: torch.Tensor, padded_hb: int,
     n = coeffs.shape[0]
     coeffs, qtab = coeffs.contiguous(), qtab.contiguous()
     dc = dc.contiguous() if dc is not None else None
+    build.check_aligned("dequant_idct_islow", [coeffs])  # read as int4
     out = torch.empty((n, padded_hb * 8, padded_wb * 8), dtype=torch.uint8, device=dev)
     rc = build.get_lib().tj_dequant_idct_islow(
         coeffs.data_ptr(), qtab.data_ptr(), int(qtab.dim() == 2),

@@ -9,8 +9,9 @@ Port of the restart-segment part of
 ``_make_kernel`` Pallas kernel with ``emit="pixels"`` and
 ``emit="coeff"``, which become the CUDA kernels ``tj_wavefront_pixels``
 and ``tj_wavefront_coeff`` in ``csrc/wavefront.cu``, and the coefficient
-entries ``decode_batch_to_device``, ``decode_multiscan_to_device`` and
-``decode_all_scans``. The plain version of both kernels,
+entries ``decode_batch_to_coeffs`` (the batch layout kernel 6 takes),
+``decode_batch_to_device`` (the reference's per-image split of it),
+``decode_multiscan_to_device`` and ``decode_all_scans``. The plain version of both kernels,
 ``decode_lanes_plain``, is a lane-vectorized torch state machine with
 the same steps as the Pallas kernel; the wrappers
 ``decode_lanes_to_planes`` and ``decode_lanes_to_coeffs`` take it only
@@ -535,6 +536,8 @@ def _launch_wavefront(plan: LanePlan, layout: PlaneLayout, outs: Sequence[torch.
     )
     if B > 10 or len(outs) > 4 or (emit == "pixels" and nq > MAX_QSETS):
         raise ValueError(f"{name}: B={B}, nq={nq}, outputs={len(outs)} out of range")
+    if emit == "coeff":
+        build.check_aligned(name, outs)  # each block is stored as 16 int4
     L, W = plan.bits.shape
     P = 1 << max(W - 1, 1).bit_length()
     if emit == "pixels":
@@ -658,21 +661,33 @@ def decode_batch_to_rgb(
     return rgb, resolve_rgb_errors(err, plan)
 
 
-def decode_batch_to_device(
+def decode_batch_to_coeffs(
     jpegs: Sequence, config: DecodeConfig = DEFAULT_CONFIG, strict: bool = True, device="cuda"
-) -> Tuple[List[Optional[List[torch.Tensor]]], Dict[int, Exception]]:
+) -> Tuple[List[torch.Tensor], Dict[int, Exception]]:
     """Coefficient decode of a uniform batch of parsed baseline JPEGs on
-    `device` (kernel 2). Returns (per image, per frame component, int32
-    [padded_blocks, 64] zigzag coefficients on `device`, or None for a
-    failed image; {image index: exception}). With `strict`, the first
-    failure raises instead. The per-image tensors are views of one
-    [N, padded_blocks, 64] array per component."""
+    `device` (kernel 2), in the batch layout ``pipeline.transform_batch``
+    takes. Returns (per frame component, int32 [N, padded_blocks, 64]
+    zigzag coefficients on `device`, whose rows for a failed image are
+    garbage; {image index: exception}). With `strict`, the first failure
+    raises instead."""
     plan = build_block_plan(jpegs)
     geoms = [ImageGeom.of(j) for j in jpegs]
     coeffs, err = decode_lanes_to_coeffs(plan, geoms, device)
     failures = resolve_rgb_errors(err, plan)
     if strict and failures:
         raise failures[min(failures)]
+    return coeffs, failures
+
+
+def decode_batch_to_device(
+    jpegs: Sequence, config: DecodeConfig = DEFAULT_CONFIG, strict: bool = True, device="cuda"
+) -> Tuple[List[Optional[List[torch.Tensor]]], Dict[int, Exception]]:
+    """``decode_batch_to_coeffs`` split per image, the reference's
+    layout: (per image, per frame component, int32 [padded_blocks, 64]
+    zigzag coefficients on `device`, or None for a failed image;
+    {image index: exception}). The per-image tensors are views of the
+    batch arrays."""
+    coeffs, failures = decode_batch_to_coeffs(jpegs, config, strict, device)
     results: List[Optional[List[torch.Tensor]]] = [
         None if i in failures else [c[i] for c in coeffs] for i in range(len(jpegs))
     ]
