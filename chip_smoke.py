@@ -8,13 +8,18 @@ in tpujpeg_torch/fixtures/); it imports neither JAX nor PIL nor any file
 of tpujpeg/. Phases, one JSON line each:
 
 1. device: the card's name and power limit.
-2. build: nvcc builds the six kernels into tpujpeg_torch/_build/ (one
+2. build: nvcc builds the nine kernels into tpujpeg_torch/_build/ (one
    nvcc per source, all started together).
 3. kernel_vs_plain: on every fused-path fixture at batch 2, kernel A's
    planes and error bits, kernel 2's coefficients and error bits,
    kernel 6's planes from those coefficients, and kernel B/C/D's RGB,
    equal their plain torch versions run on the same CUDA tensors
    (tolerance 0: integer arithmetic).
+   Also the progressive scan kernels 7, 8 and 9 against their plain
+   versions, scan by scan from the same state, on batch 2 of every
+   progressive fixture (states, DC columns and error bits equal, RGB
+   hashing to PIL's), and on a corrupted batch of 3. kernel_timing holds
+   them to their plain versions again on the progressive phase's batch.
 4. main_path: decode_batch_to_rgb of 32 copies of the 2048x2048 q85
    4:2:0 fixture (restart every 4 MCUs), one warm-up and 3 timed runs;
    the launch counters, zeroed just before, show kernels A and B ran
@@ -26,16 +31,25 @@ of tpujpeg/. Phases, one JSON line each:
    (kernel 6, then kernel B), one warm-up and 3 timed runs, counted
    apart: kernels 2, 6 and B ran, A did not. The RGB equals the main
    path's byte for byte and PIL's hash.
-6. kernel_timing: each kernel and its plain version, timed with CUDA
-   events on the main and staged paths' inputs and compared, beside
-   its bound (bytes over 3.35 TB/s or integer operations over the
-   card's issue rate, whichever is larger).
-7. faults: one corrupted member of a batch fails with the manifest's
+6. progressive: 32 copies of the same image written progressive with
+   restart markers through decode_all_scans_to_rgb_batch, one warm-up
+   and 3 timed runs, counted apart: per call kernel 7 once, 8 and 9
+   four times each, kernel 6 three times and B once, and neither A nor
+   2. The RGB equals the main path's byte for byte and PIL's hash.
+7. kernel_timing: each kernel and its plain version, timed with CUDA
+   events on the main, staged and progressive paths' inputs (kernels
+   7-9 and their plain versions: summed over the scans of their kind at
+   batch 32, each scan run from its own input state, the kernel's output
+   state and error bits equal to the plain version's), beside its
+   bound (bytes over 3.35 TB/s or integer operations over the card's
+   issue rate, whichever is larger).
+8. faults: one corrupted member of a batch fails with the manifest's
    exception class; the other members stay bit-exact.
-8. decode: tpujpeg_torch.decode of fused fixtures, and of the staged
+9. decode: tpujpeg_torch.decode of fused fixtures, and of the staged
    ones (progressive and marker-free 2048^2 through native entropy,
    kernel 6 and kernel B; multi-scan with entropy_engine="wavefront",
-   kernel 2 per component), hashes to PIL's.
+   kernel 2 per component; the restart-segmented progressive 2048^2
+   with entropy_engine="wavefront", kernels 7-9), hashes to PIL's.
 
 Then the check that no module was loaded from tpujpeg/ and nothing was
 written there, the nvidia-smi line, the kernels JSON line and, last,
@@ -45,6 +59,7 @@ without a card.
 
 from __future__ import annotations
 
+import collections
 import hashlib
 import json
 import os
@@ -65,7 +80,12 @@ KERNELS = {
     "upsample_color_h2v2": ("tpujpeg_torch/csrc/sample_color.cu", "tpujpeg/kernels/sample_color.py:97"),
     "upsample_color_h2v1": ("tpujpeg_torch/csrc/sample_color.cu", "tpujpeg/kernels/sample_color.py:146"),
     "color_444": ("tpujpeg_torch/csrc/sample_color.cu", "tpujpeg/kernels/sample_color.py:160"),
+    "prog_dc_first": ("tpujpeg_torch/csrc/prog.cu", "tpujpeg/kernels/wavefront_prog.py:236"),
+    "prog_ac_first": ("tpujpeg_torch/csrc/prog.cu", "tpujpeg/kernels/wavefront_prog.py:382"),
+    "prog_ac_refine": ("tpujpeg_torch/csrc/prog.cu", "tpujpeg/kernels/wavefront_prog.py:710"),
 }
+PROG_MAIN = "prog_rst_2048"   # the progressive phase's fixture
+PROG_KERNEL = {"dc_first": "prog_dc_first", "ac_first": "prog_ac_first", "ac_refine": "prog_ac_refine"}
 
 # The card's roofs for bound_ms: HBM3 at 3.35 TB/s, and integer work at
 # the issue rate of 132 SMs x 128 lanes x 1.98 GHz with two operations
@@ -85,9 +105,20 @@ INT32_OPS_PER_S = 132 * 128 * 2 * 1.98e9
 # 8 (window, one code compare, value fetch, extend, cursor); symbols
 # are counted from this run's coefficients as DC + nonzero AC + EOB,
 # leaving out ZRLs, so the decode count is a lower bound.
+# The progressive kernels count symbols from the state before and after
+# each scan: DC first one per block; AC first one per new nonzero of the
+# band plus one EOB for each lane with a block whose coefficient Se stays
+# 0 (runs reset at each restart); AC refine one per new nonzero, plus 2
+# operations per correction bit (one for each nonzero the band held
+# before), leaving out its EOBs and ZRLs. Bytes: the scan's compressed
+# segments, plus the DC column written (DC first); for AC first the
+# 32-byte sectors that hold a coefficient the scan changed, read and
+# written (the kernel adds into a zeroed band); for AC refine the band
+# read, plus those sectors written (a block goes back only if changed).
 OPS_IDCT_BLOCK = 1376
 OPS_COLOR_PIXEL = {"upsample_color_h2v2": 32, "upsample_color_h2v1": 30, "color_444": 22}
 OPS_SYMBOL = 8
+OPS_CORRECTION_BIT = 2
 
 
 class SmokeError(Exception):
@@ -140,6 +171,33 @@ def bound(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def prog_work(torch, plan, frame, before, after):
+    """(bytes, operations) the function of one progressive kernel scan
+    needs on this run's data (counting rules beside OPS_SYMBOL); before
+    and after are the scan component's AC state around the scan."""
+    row_bytes = int(plan.seg_bits.to(torch.int64).sum()) // 8
+    if plan.kind == "dc_first":
+        blocks = int(plan.lane_meta[:, 2].to(torch.int64).sum()) * len(plan.blk)
+        return row_bytes + blocks * 4, blocks * OPS_SYMBOL
+    c = frame.components[plan.comp_indices[0]]
+    n, hb, wb = after.shape[0], c.height_blocks, c.width_blocks
+    a = after.view(n, c.padded_hb, c.padded_wb, 64)[:, :hb, :wb]
+    b = before.view(n, c.padded_hb, c.padded_wb, 64)[:, :hb, :wb]
+    band = slice(plan.ss, plan.se + 1)
+    prior = int((b[..., band] != 0).sum())
+    new_nz = int((a[..., band] != 0).sum()) - prior
+    sector_bytes = int((after != before).view(n, -1, 8, 8).any(-1).sum()) * 32
+    if plan.kind == "ac_first":
+        z = (a[..., plan.se] == 0).reshape(-1).to(torch.int64)
+        cum = torch.cat([z.new_zeros(1), z.cumsum(0)])
+        meta = plan.lane_meta.to(torch.int64)
+        start = meta[:, 0] * (hb * wb) + meta[:, 1]
+        eob_lanes = int(((cum[start + meta[:, 2]] - cum[start]) > 0).sum())
+        return row_bytes + 2 * sector_bytes, (new_nz + eob_lanes) * OPS_SYMBOL
+    band_bytes = n * hb * wb * (plan.se - plan.ss + 1) * 4
+    return row_bytes + band_bytes + sector_bytes, new_nz * OPS_SYMBOL + prior * OPS_CORRECTION_BIT
+
+
 def ref_tree(root: str):
     """(path, size, mtime) of every file under the reference package."""
     out = []
@@ -151,6 +209,7 @@ def ref_tree(root: str):
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -164,6 +223,7 @@ def main() -> int:
         print(f"chip_smoke: run it from a checkout of the repo: {e}", file=sys.stderr)
         return 1
     from tpujpeg_torch.kernels import build, idct, pipeline, sample_color as sc, wavefront as wf
+    from tpujpeg_torch.kernels import wavefront_prog as wp
 
     with open(os.path.join(FIXTURES, "manifest.json")) as f:
         manifest = json.load(f)
@@ -173,6 +233,7 @@ def main() -> int:
             datas[name] = f.read()
         check(hashlib.sha256(datas[name]).hexdigest() == entry["file_sha256"], f"{name}: file hash")
     fused = [n for n, e in manifest["fixtures"].items() if e["path"] == "fused"]
+    progressive = [n for n, e in manifest["fixtures"].items() if e["path"] == "progressive"]
     dev = torch.device("cuda", 0)
     parse = tpujpeg_torch.bitstream.parse
     config = tpujpeg_torch.DEFAULT_CONFIG
@@ -254,6 +315,69 @@ def main() -> int:
             gray = planes_k[0][0, : c.dheight, : c.dwidth]
             check(sha(gray) == manifest["fixtures"][name]["pil_sha256"], f"{name}: gray != PIL")
         emit("kernel_vs_plain", **rec)
+
+    def events():
+        return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    prog_err = {k: 0 for k in PROG_KERNEL.values()}
+
+    def prog_vs_plain(jpegs):
+        """Every scan of a progressive group: kernels 7-9 and their plain
+        versions from the same state. Returns the kernels' state and the
+        count of lanes with error bits."""
+        steps = [st.to(dev) if isinstance(st, wp.ScanPlan) else st for st in wp.plan_scans(jpegs)]
+        acs, dcs = wp.new_state(jpegs[0].frame, len(jpegs), dev)
+        bad_lanes = 0
+        for k, step in enumerate(steps):
+            if isinstance(step, wp.DcRefine):
+                wp.apply_step(step, acs, dcs)
+                continue
+            kname = PROG_KERNEL[step.kind]
+            acs_p, dcs_p = [a.clone() for a in acs], [d.clone() for d in dcs]
+            err_k, _ = wp.apply_step(step, acs, dcs)
+            torch.cuda.synchronize()
+            err_p, _ = wp.apply_step(step, acs_p, dcs_p, plain=True)
+            diff = max(max_abs(torch, a, b) for a, b in zip(acs + dcs, acs_p + dcs_p))
+            check(diff == 0 and torch.equal(err_k, err_p),
+                  f"scan {k}: {kname} != plain (state {diff}, error bits equal: {torch.equal(err_k, err_p)})")
+            prog_err[kname] = max(prog_err[kname], diff)
+            bad_lanes += int((err_k != 0).sum())
+        return acs, dcs, bad_lanes
+
+    for name in progressive:
+        jpegs = [parse(datas[name]) for _ in range(2)]
+        acs, dcs, bad_lanes = prog_vs_plain(jpegs)
+        check(bad_lanes == 0, f"{name}: {bad_lanes} lanes with errors")
+        fr = jpegs[0].frame
+        out = pipeline.transform_batch(fr, acs, qtabs_of(jpegs[0]), config,
+                                       color=tpujpeg_torch.bitstream.color_space(jpegs[0]), dcs=dcs)
+        for i in range(2):
+            check(sha(out[i]) == manifest["fixtures"][name]["pil_sha256"], f"{name}: image {i} != PIL")
+        emit("kernel_vs_plain", fixture=name, images=2, scans=len(jpegs[0].scans),
+             max_abs_err={k: prog_err[k] for k in PROG_KERNEL.values()})
+        del acs, dcs, out
+
+    # A corrupted batch of 3: member 1's first AC-first payload filled
+    # with 0xFF bytes (no valid code), member 2's AC-refine payloads with
+    # seeded byte flips; restart offsets stay, so the lanes do too.
+    name = progressive[-1]
+    jpegs = [parse(datas[name]) for _ in range(3)]
+    rng = np.random.default_rng(5)
+    for k, scan in enumerate(jpegs[1].scans):
+        if wp.scan_kind(scan) == "ac_first":
+            scan.data = bytes([0xFF]) * len(scan.data)
+            break
+    for scan in jpegs[2].scans:
+        if wp.scan_kind(scan) == "ac_refine":
+            buf = np.frombuffer(bytes(scan.data), np.uint8).copy()
+            pos = rng.integers(0, len(buf), size=4)
+            buf[pos] ^= rng.integers(1, 256, size=4).astype(np.uint8)
+            scan.data = buf.tobytes()
+    _acs, _dcs, bad_lanes = prog_vs_plain(jpegs)
+    check(bad_lanes > 0, "corrupted progressive batch: no lane reported an error")
+    emit("kernel_vs_plain", fixture=name, images=3, corrupted=[1, 2], lanes_with_errors=bad_lanes,
+         max_abs_err={k: prog_err[k] for k in PROG_KERNEL.values()})
+    del _acs, _dcs
 
     # 4. main path: the counters cover the 4:2:0 batch's four calls alone.
     data = datas["420_2048"]
@@ -339,7 +463,58 @@ def main() -> int:
     emit("staged", images=MAIN_BATCH, megapixels=mp, calls=4, wall_s=walls, wall_median_s=wall,
          mp_per_s=mp / wall, host_plan_s=t_plan, launches=staged_launches, coeff_bytes=coeff_bytes,
          blocks=blocks, symbols_lower_bound=symbols)
-    del rgb, fused_rgb
+    del rgb
+
+    # 6. progressive: the same image, progressive with restarts, through
+    # kernels 7-9, then 6 and B.
+    pjpegs = [parse(datas[PROG_MAIN]) for _ in range(MAIN_BATCH)]
+    pframe = pjpegs[0].frame
+    t0 = time.perf_counter()
+    psteps = wp.plan_scans(pjpegs)
+    t_pplan = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for k, scan in enumerate(pjpegs[0].scans):
+        if wp.scan_kind(scan) == "dc_refine":
+            wp.build_dc_refine(pjpegs, k)
+    t_masks = time.perf_counter() - t0
+    kernel_steps = [st for st in psteps if isinstance(st, wp.ScanPlan)]
+    per_call = collections.Counter(PROG_KERNEL[st.kind] for st in kernel_steps)
+    per_call["dequant_idct_islow"] = pframe.n_components
+    color_kernel = {((1, 1), (2, 2), (2, 2)): "upsample_color_h2v2",
+                    ((1, 1), (2, 1), (2, 1)): "upsample_color_h2v1",
+                    ((1, 1), (1, 1), (1, 1)): "color_444"}.get(
+        tuple((pframe.hmax // c.h, pframe.vmax // c.v) for c in pframe.components))
+    if color_kernel:
+        per_call[color_kernel] = 1
+    walls = []
+    build.LAUNCHES.clear()
+    for i in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prgb, failures = tpujpeg_torch.decode_all_scans_to_rgb_batch(pjpegs, config, device=dev)
+        torch.cuda.synchronize()
+        if i:
+            walls.append(time.perf_counter() - t0)
+        check(not failures, f"progressive failures: {failures}")
+    prog_launches = {k: build.LAUNCHES.get(k, 0) for k in KERNELS}
+    check({k: n for k, n in prog_launches.items() if n} == {k: 4 * n for k, n in per_call.items()},
+          f"progressive launches {prog_launches}, want 4 x {dict(per_call)}")
+    check(torch.equal(prgb, fused_rgb), "progressive RGB != fused main path RGB")
+    for i in (0, MAIN_BATCH - 1):
+        check(sha(prgb[i]) == manifest["fixtures"][PROG_MAIN]["pil_sha256"], f"progressive image {i} != PIL")
+    for k in PROG_KERNEL.values():
+        launches[k] = prog_launches[k]
+    wall = statistics.median(walls)
+    state_bytes = sum(c.padded_hb * c.padded_wb * 65 * 4 for c in pframe.components) * MAIN_BATCH
+    emit("progressive", fixture=PROG_MAIN, images=MAIN_BATCH, megapixels=mp, calls=4, wall_s=walls,
+         wall_median_s=wall, mp_per_s=mp / wall, host_plan_s=t_pplan, dc_refine_masks_s=t_masks,
+         launches=prog_launches,
+         per_call=dict(per_call), scans=len(psteps),
+         lanes_per_scan=[st.n_lanes if isinstance(st, wp.ScanPlan) else None for st in psteps],
+         words_per_scan=[st.n_words if isinstance(st, wp.ScanPlan) else None for st in psteps],
+         state_bytes=state_bytes,
+         dc_refine_ors=sum(len(st.comp_indices) for st in psteps if isinstance(st, wp.DcRefine)))
+    del prgb, fused_rgb
 
     # 6. Each kernel against its plain version on the main path's inputs.
     results = {}
@@ -417,6 +592,78 @@ def main() -> int:
         check(results[kname]["max_abs_err"] == 0, f"{kname}: kernel != plain on the main path")
         del out_k, out_p
     del planes_k, color_inputs
+
+    # Kernels 7-9 at batch 32, scan by scan: the plain version runs once
+    # on a copy of the scan's input state, each timed launch from that
+    # input state (restored before every rep), then the state, moved on
+    # to the kernel's output, and the error bits must equal the plain
+    # version's.
+    def run_scan(plan, target, err, plain=False):
+        if plan.kind == "dc_first":
+            wp.dc_first(plan, target, err, plain=plain)
+        elif plan.kind == "ac_first":
+            wp.ac_first(plan, target[0], err, plain=plain)
+        else:
+            wp.ac_refine(plan, target[0], err, plain=plain)
+
+    acs, dcs = wp.new_state(pframe, MAIN_BATCH, dev)
+    prog_ms = {k: 0.0 for k in PROG_KERNEL.values()}
+    prog_plain_ms = {k: 0.0 for k in PROG_KERNEL.values()}
+    prog_err32 = {k: 0 for k in PROG_KERNEL.values()}
+    prog_bytes = {k: 0 for k in PROG_KERNEL.values()}
+    prog_ops = {k: 0 for k in PROG_KERNEL.values()}
+    prog_scans = collections.Counter()
+    for step in psteps:
+        if isinstance(step, wp.DcRefine):
+            wp.apply_step(step, acs, dcs)
+            continue
+        plan = step.to(dev)
+        kname = PROG_KERNEL[plan.kind]
+        err_s = torch.zeros(plan.n_lanes, dtype=torch.int32, device=dev)
+        target = dcs if plan.kind == "dc_first" else [acs[plan.comp_indices[0]]]
+        before = [t.clone() for t in target]
+        want = [t.clone() for t in target]
+        err_p = torch.zeros_like(err_s)
+        torch.cuda.synchronize()
+        start, end = events()
+        start.record()
+        run_scan(plan, want, err_p, plain=True)
+        end.record()
+        torch.cuda.synchronize()
+        prog_plain_ms[kname] += start.elapsed_time(end)
+        reps = []
+        for _ in range(3):
+            for t, b in zip(target, before):
+                t.copy_(b)
+            torch.cuda.synchronize()
+            start, end = events()
+            start.record()
+            run_scan(plan, target, err_s)
+            end.record()
+            torch.cuda.synchronize()
+            reps.append(start.elapsed_time(end))
+        diff = max(max_abs(torch, a, b) for a, b in zip(target, want))
+        check(diff == 0 and torch.equal(err_s, err_p),
+              f"batch {MAIN_BATCH}: {kname} != plain (state {diff}, "
+              f"error bits equal: {torch.equal(err_s, err_p)})")
+        check(not err_s.any(), f"{kname}: error bits on the timing run")
+        prog_err32[kname] = max(prog_err32[kname], diff)
+        prog_ms[kname] += statistics.mean(reps)
+        nbytes, ops = prog_work(torch, plan, pframe, before[0], target[0])
+        prog_bytes[kname] += nbytes
+        prog_ops[kname] += ops
+        prog_scans[kname] += 1
+        del before, want
+    for scan_kind, kname in PROG_KERNEL.items():
+        lanes_k = sum(st.n_lanes for st in kernel_steps if st.kind == scan_kind)
+        results[kname] = dict(
+            max_abs_err=prog_err32[kname], ms=prog_ms[kname], plain_ms=prog_plain_ms[kname],
+            launches_timed=prog_scans[kname],
+            shape=(f"{prog_scans[kname]} {scan_kind} scans of {MAIN_BATCH} x {PROG_MAIN}, {lanes_k} lanes in all, "
+                   f"ms and plain_ms summed over the scans"),
+            bound=bound(prog_bytes[kname], prog_ops[kname]),
+        )
+    del acs, dcs
     for k, r in results.items():
         r["bound_ms"], r["bound_by"] = r.pop("bound")
         emit("kernel_timing", kernel=k, **r)
@@ -442,7 +689,8 @@ def main() -> int:
                                ("gray", config, ("wavefront-fused", "cuda")),
                                ("prog_2048", config, ("native", "cuda")),
                                ("norst_2048", config, ("native", "cuda")),
-                               ("multiscan", wavefront, ("wavefront", "cuda"))):
+                               ("multiscan", wavefront, ("wavefront", "cuda")),
+                               (PROG_MAIN, wavefront, ("wavefront", "cuda"))):
         build.LAUNCHES.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -452,6 +700,9 @@ def main() -> int:
               f"decode({name}) != PIL")
         check((st.entropy_engine, st.transform_engine) == engines,
               f"decode({name}) took {st.entropy_engine}/{st.transform_engine}")
+        if name == PROG_MAIN:
+            check(all(build.LAUNCHES[k] for k in PROG_KERNEL.values()),
+                  f"decode({name}) launched {dict(build.LAUNCHES)}")
         emit("decode", fixture=name, shape=list(out.shape), entropy_engine=st.entropy_engine,
              transform_engine=st.transform_engine, entropy_fallbacks=st.entropy_fallbacks,
              seconds=seconds, t_entropy=st.t_entropy, t_transform=st.t_transform,

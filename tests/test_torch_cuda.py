@@ -1,4 +1,4 @@
-"""Kernels A-D, 2 and 6 against their plain torch versions on a CUDA card.
+"""Kernels A-D, 2, 6 and 7-9 against their plain torch versions on a CUDA card.
 
 Every test here needs a card: each skips, with a reason, where
 torch.cuda.is_available() is false. This file imports neither JAX nor PIL,
@@ -25,6 +25,7 @@ from tpujpeg_torch.kernels import idct
 from tpujpeg_torch.kernels import pipeline
 from tpujpeg_torch.kernels import sample_color as sc
 from tpujpeg_torch.kernels import wavefront as wf
+from tpujpeg_torch.kernels import wavefront_prog as wp
 
 FIXTURES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                         "tpujpeg_torch", "fixtures")
@@ -32,6 +33,8 @@ with open(os.path.join(FIXTURES, "manifest.json")) as _f:
     MANIFEST = json.load(_f)
 FUSED = sorted(n for n, e in MANIFEST["fixtures"].items() if e["path"] == "fused")
 STAGED = sorted(n for n, e in MANIFEST["fixtures"].items() if e["path"] == "staged")
+PROGRESSIVE = sorted(n for n, e in MANIFEST["fixtures"].items() if e["path"] == "progressive")
+PROG_KERNEL = {"dc_first": "prog_dc_first", "ac_first": "prog_ac_first", "ac_refine": "prog_ac_refine"}
 
 
 @pytest.fixture
@@ -232,3 +235,127 @@ def test_staged_decode_on_card_matches_pil_hashes(cuda, name, entropy):
     assert build.LAUNCHES["dequant_idct_islow"] == before.get("dequant_idct_islow", 0) + 3
     if entropy == "wavefront":
         assert build.LAUNCHES["wavefront_coeff"] == before.get("wavefront_coeff", 0) + 3
+
+
+def _prog_kernels_and_plain(jpegs, dev, steps=None):
+    """Every scan of a progressive group through kernels 7-9 and, from the
+    same state, their plain versions: error bits, AC states and DC
+    columns equal after each scan. Returns (state, lanes with errors)."""
+    steps = steps if steps is not None else wp.plan_scans(jpegs)
+    acs, dcs = wp.new_state(jpegs[0].frame, len(jpegs), dev)
+    bad = 0
+    for k, step in enumerate(steps):
+        if isinstance(step, wp.DcRefine):
+            wp.apply_step(step, acs, dcs)
+            continue
+        name = PROG_KERNEL[step.kind]
+        acs_p, dcs_p = [a.clone() for a in acs], [d.clone() for d in dcs]
+        before = build.LAUNCHES[name]
+        err, _ = wp.apply_step(step, acs, dcs)
+        torch.cuda.synchronize()
+        assert build.LAUNCHES[name] == before + 1
+        err_p, _ = wp.apply_step(step, acs_p, dcs_p, plain=True)
+        assert build.LAUNCHES[name] == before + 1
+        assert torch.equal(err, err_p), f"scan {k} ({name}) error bits"
+        for a, b in zip(acs + dcs, acs_p + dcs_p):
+            assert torch.equal(a, b), f"scan {k} ({name}) state"
+        bad += int(err.count_nonzero())
+    return acs, dcs, bad
+
+
+@pytest.mark.parametrize("name", PROGRESSIVE)
+def test_prog_kernels_match_plain_on_fixtures(cuda, name):
+    import hashlib
+
+    jpegs = [tpujpeg_torch.bitstream.parse(_read(name)) for _ in range(2)]
+    acs, dcs, bad = _prog_kernels_and_plain(jpegs, cuda)
+    assert bad == 0
+    frame = jpegs[0].frame
+    qtabs = [torch.from_numpy(jpegs[0].qtables[c.tq]).to(cuda) for c in frame.components]
+    rgb = pipeline.transform_batch(frame, acs, qtabs, tpujpeg_torch.DEFAULT_CONFIG,
+                                   color=tpujpeg_torch.bitstream.color_space(jpegs[0]), dcs=dcs)
+    for i in range(2):
+        assert hashlib.sha256(rgb[i].cpu().numpy().tobytes()).hexdigest() == MANIFEST["fixtures"][name]["pil_sha256"]
+
+
+def test_prog_kernels_match_plain_on_corrupt_streams(cuda):
+    """prog_444 x 4: member 1's first AC-first payload all 0xFF, members 2
+    and 3 with seeded byte flips in every AC-first and AC-refine payload."""
+    jpegs = [tpujpeg_torch.bitstream.parse(_read("prog_444")) for _ in range(4)]
+    rng = np.random.default_rng(11)
+    first = next(s for s in jpegs[1].scans if wp.scan_kind(s) == "ac_first")
+    first.data = b"\xff" * len(first.data)
+    for j in jpegs[2:]:
+        for scan in j.scans:
+            if wp.scan_kind(scan) in ("ac_first", "ac_refine"):
+                buf = np.frombuffer(bytes(scan.data), np.uint8).copy()
+                pos = rng.integers(0, len(buf), size=3)
+                buf[pos] ^= rng.integers(1, 256, size=3).astype(np.uint8)
+                scan.data = buf.tobytes()
+    _acs, _dcs, bad = _prog_kernels_and_plain(jpegs, cuda)
+    assert bad > 0
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_prog_kernels_match_plain_on_random_rows_and_state(cuda, seed):
+    """The lane rows of prog_gray's scans replaced by random words, and
+    each AC scan applied to a random sparse state: the band machine of
+    kernel 9 meets nonzero patterns no encoder wrote."""
+    jpegs = [tpujpeg_torch.bitstream.parse(_read("prog_gray")) for _ in range(2)]
+    g = torch.Generator().manual_seed(seed)
+    steps = wp.plan_scans(jpegs)
+    for st in steps:
+        if isinstance(st, wp.ScanPlan):
+            st.bits = torch.randint(-(2**31), 2**31 - 1, st.bits.shape, generator=g, dtype=torch.int32)
+    acs, dcs = wp.new_state(jpegs[0].frame, 2, cuda)
+    vals = torch.randint(-40, 40, acs[0].shape, generator=g, dtype=torch.int32)
+    vals[torch.rand(acs[0].shape, generator=g) < 0.7] = 0
+    for st in steps:
+        if not isinstance(st, wp.ScanPlan) or st.kind == "dc_first":
+            continue
+        for plain in (False, True):
+            state = vals.to(cuda, copy=True)
+            err, _ = wp.apply_step(st, [state], dcs, plain=plain)
+            if plain:
+                assert torch.equal(err, err_k) and torch.equal(state, state_k)
+            else:
+                torch.cuda.synchronize()
+                err_k, state_k = err, state
+
+
+def test_prog_ac_refine_refuses_misaligned_state(cuda):
+    """Kernel 9 moves each block as 16 int4 words: a contiguous state view
+    that starts off a 16-byte boundary raises before launching, and the
+    context stays usable."""
+    jpegs = [tpujpeg_torch.bitstream.parse(_read("prog_gray"))]
+    plan = next(s for s in wp.plan_scans(jpegs) if isinstance(s, wp.ScanPlan) and s.kind == "ac_refine").to(cuda)
+    nb = plan.comp[0][3]
+    flat = torch.zeros(1 + nb * 64, dtype=torch.int32, device=cuda)
+    err = torch.zeros(plan.n_lanes, dtype=torch.int32, device=cuda)
+    before = build.LAUNCHES["prog_ac_refine"]
+    with pytest.raises(ValueError, match="16-byte"):
+        wp.ac_refine(plan, flat[1:].view(1, nb, 64), err)
+    assert build.LAUNCHES["prog_ac_refine"] == before
+    wp.ac_refine(plan, flat[: nb * 64].view(1, nb, 64), err)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["prog_ac_refine"] == before + 1
+
+
+def test_prog_decode_on_card_matches_pil_hashes(cuda):
+    """decode_all_scans_to_rgb_batch and decode(entropy_engine="wavefront")
+    on the small progressive fixtures."""
+    import hashlib
+
+    for name in ("prog_444", "prog_gray"):
+        want = MANIFEST["fixtures"][name]["pil_sha256"]
+        rgb, failures = tpujpeg_torch.decode_all_scans_to_rgb_batch(
+            [tpujpeg_torch.bitstream.parse(_read(name)) for _ in range(3)], device=cuda)
+        assert not failures and rgb.device.type == "cuda"
+        for i in range(3):
+            assert hashlib.sha256(rgb[i].cpu().numpy().tobytes()).hexdigest() == want
+        before = build.LAUNCHES["prog_ac_refine"]
+        out, stats = tpujpeg_torch.decode(_read(name), tpujpeg_torch.DecodeConfig(entropy_engine="wavefront"),
+                                          device=cuda, return_stats=True)
+        assert stats.entropy_engine == "wavefront" and stats.transform_engine == "cuda"
+        assert build.LAUNCHES["prog_ac_refine"] > before
+        assert hashlib.sha256(out.tobytes()).hexdigest() == want

@@ -60,10 +60,12 @@ def test_decode_returns_tensor_without_to_numpy():
 
 # The three streams the fused path turns away now decode on the staged
 # path (native entropy, kernel 6, kernel B); with entropy_engine=
-# "wavefront" they stay outside this slice and raise, naming the slice
-# that will take them.
+# "wavefront" they stay outside the device paths and raise, naming the
+# slice that will take them. (A progressive stream is outside them only
+# when a scan without restart markers exceeds the 2040-byte row, as
+# here; smaller ones run through kernels 7-9.)
 OUT_OF_SLICE = {
-    "progressive": (make_jpeg(64, 64, seed=1, subsampling=2, progressive=True), "progressive"),
+    "progressive": (make_jpeg(256, 256, seed=5, subsampling=2, progressive=True), "marker-free"),
     "oversize_segment": (make_jpeg(96, 64, seed=9, subsampling=0), "marker-free"),
     "multi_scan": (make_multiscan_jpeg(96, 80, seed=9, subsampling=2), "marker-free"),
 }

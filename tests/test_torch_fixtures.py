@@ -21,6 +21,7 @@ from tpujpeg import bitstream as ref_bitstream
 from tpujpeg.kernels import wavefront_pallas as wp
 
 import tpujpeg_torch
+from tpujpeg_torch.kernels import wavefront_prog as wprog
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(ROOT, "tpujpeg_torch", "fixtures")
@@ -57,6 +58,39 @@ def test_manifest_faults_are_what_the_reference_raises(fault):
     assert {i: type(e).__name__ for i, e in want.items()} == expected
     assert {i: type(e).__name__ for i, e in got.items()} == expected
     np.testing.assert_array_equal(got_rgb.numpy(), np.asarray(want_rgb))
+
+
+# prog_rst_2048's scan script: (kind, components, Ss, Se, Ah, Al, segments).
+PROG_RST_2048_SCRIPT = [
+    ("dc_first", (0, 1, 2), 0, 0, 0, 1, 4096),
+    ("ac_first", (0,), 1, 5, 0, 2, 16384),
+    ("ac_first", (2,), 1, 63, 0, 1, 4096),
+    ("ac_first", (1,), 1, 63, 0, 1, 4096),
+    ("ac_first", (0,), 6, 63, 0, 2, 16384),
+    ("ac_refine", (0,), 1, 63, 2, 1, 16384),
+    ("dc_refine", (0, 1, 2), 0, 0, 1, 0, 4096),
+    ("ac_refine", (2,), 1, 63, 1, 0, 4096),
+    ("ac_refine", (1,), 1, 63, 1, 0, 4096),
+    ("ac_refine", (0,), 1, 63, 1, 0, 16384),
+]
+
+
+@pytest.mark.parametrize("name", sorted(n for n, e in MANIFEST["fixtures"].items()
+                                        if e["path"] == "progressive"))
+def test_progressive_fixtures_plan_on_the_scan_planner(name):
+    """The progressive path's fixtures are restart-segmented progressive
+    streams inside the scan planner's scope, with all four scan kinds;
+    prog_rst_2048 has the scan script chip_smoke.py's counts rest on."""
+    jpeg = tpujpeg_torch.bitstream.parse(_read(name))
+    assert jpeg.frame.progressive and jpeg.restart_interval
+    steps = wprog.plan_scans([jpeg])
+    kinds = [wprog.scan_kind(s) for s in jpeg.scans]
+    assert set(kinds) == {"dc_first", "dc_refine", "ac_first", "ac_refine"}
+    if name == "prog_rst_2048":
+        got = [(k, tuple(s.comp_indices), s.ss, s.se, s.ah, s.al, len(s.rst_offsets) + 1)
+               for k, s in zip(kinds, jpeg.scans)]
+        assert got == PROG_RST_2048_SCRIPT
+        assert sum(st.n_lanes for st in steps if isinstance(st, wprog.ScanPlan)) == 90112 - 4096
 
 
 def test_port_imports_neither_jax_nor_pil():

@@ -25,7 +25,7 @@ from tpujpeg.kernels import pipeline as ref_pipeline
 from tpujpeg.kernels import wavefront_pallas as wp
 
 import tpujpeg_torch
-from tpujpeg_torch import DecodeConfig, bitstream
+from tpujpeg_torch import DecodeConfig, bitstream, huffman
 from tpujpeg_torch.kernels import pipeline
 from tpujpeg_torch.kernels import wavefront as pw
 from tpujpeg_torch.native import entropy as native
@@ -121,9 +121,18 @@ def test_decode_multiscan_matches_reference():
 
 
 def test_decode_all_scans_out_of_slice_raises():
-    prog = bitstream.parse(make_jpeg(32, 32, seed=1, progressive=True))
-    with pytest.raises(tpujpeg_torch.JpegUnsupportedError, match="progressive"):
-        pw.decode_all_scans(prog, device="cpu")
+    """A small progressive stream without restarts is one lane per scan
+    (kernels 7-9's plain versions here) and gives the python oracle's
+    coefficients; a progressive scan over 2040 bytes without restarts and
+    a marker-free baseline stream are the marker-free slice's."""
+    data = make_jpeg(32, 32, seed=1, progressive=True)
+    prog = bitstream.parse(data)
+    got = pw.decode_all_scans(prog, device="cpu")
+    for a, b in zip(got, huffman.decode_all_scans(bitstream.parse(data))):
+        np.testing.assert_array_equal(a.numpy(), b)
+    big = bitstream.parse(make_jpeg(256, 256, seed=5, progressive=True, subsampling=2))
+    with pytest.raises(tpujpeg_torch.JpegUnsupportedError, match="marker-free"):
+        pw.decode_all_scans(big, device="cpu")
     norst = bitstream.parse(make_jpeg(96, 64, seed=9, subsampling=0))
     with pytest.raises(tpujpeg_torch.JpegUnsupportedError, match="marker-free"):
         pw.decode_all_scans(norst, device="cpu")
@@ -240,9 +249,17 @@ def test_decode_staged_engines_match_pil(name, entropy, transform):
 
 
 def test_decode_wavefront_engine_on_progressive_raises():
+    """The wavefront engine takes a small progressive stream through
+    kernels 7-9 (their plain versions here) and matches PIL; a scan over
+    2040 bytes without restarts raises, naming the marker-free slice."""
     data = STAGED["prog420"]()
-    with pytest.raises(tpujpeg_torch.JpegUnsupportedError, match="progressive slice"):
-        tpujpeg_torch.decode(data, DecodeConfig(entropy_engine="wavefront"), device="cpu")
+    got, stats = tpujpeg_torch.decode(data, DecodeConfig(entropy_engine="wavefront"), device="cpu",
+                                      return_stats=True)
+    assert stats.entropy_engine == "wavefront"
+    np.testing.assert_array_equal(got, pil_decode(data))
+    big = make_jpeg(256, 256, seed=5, progressive=True, subsampling=2)
+    with pytest.raises(tpujpeg_torch.JpegUnsupportedError, match="marker-free"):
+        tpujpeg_torch.decode(big, DecodeConfig(entropy_engine="wavefront"), device="cpu")
 
 
 def test_decode_file(tmp_path):

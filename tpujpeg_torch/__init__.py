@@ -18,7 +18,19 @@ Public API:
     decode_batch_to_device(jpegs, config, strict, device)
                                                   -> (per image, per component
                                                       int32 [blocks, 64], failures)
+    decode_all_scans_to_rgb_batch(jpegs, config, device)
+                                                  -> (uint8 [N, H, W, 3], failures)
+                                                     for a progressive group
+    decode_all_scans_batch(jpegs, device)         -> (per image, per component
+                                                      AC int32 [blocks, 64] and
+                                                      DC int32 [blocks], failures)
     DecodeConfig, DecodeStats, JpegError and its subclasses
+
+A progressive group (images with one ``wavefront_prog.scan_group_key``:
+same frame, scan script and Huffman tables) decodes through the
+progressive scan kernels; ``decode()`` takes them with
+``DecodeConfig(entropy_engine="wavefront")`` and native host entropy
+otherwise, as the reference does.
 
 The kernels build with nvcc at first use on a CUDA device; on the CPU
 every kernel's plain torch version runs instead.
@@ -35,6 +47,7 @@ from .errors import (
     JpegUnsupportedError,
 )
 from .kernels.wavefront import decode_batch_to_coeffs, decode_batch_to_device, decode_batch_to_rgb
+from .kernels.wavefront_prog import decode_all_scans_batch, decode_all_scans_to_rgb_batch
 from .stats import DecodeStats
 
 __all__ = [
@@ -43,6 +56,8 @@ __all__ = [
     "decode_batch_to_rgb",
     "decode_batch_to_coeffs",
     "decode_batch_to_device",
+    "decode_all_scans_to_rgb_batch",
+    "decode_all_scans_batch",
     "bitstream",
     "DecodeConfig",
     "DEFAULT_CONFIG",

@@ -33,6 +33,64 @@ __host__ __device__ constexpr int tj_natural_to_zigzag(int n) {
   return t[n];
 }
 
+// ---------------------------------------------------------------------------
+// Huffman decoding over a lane's row of big-endian words (kernels A, 2, 7,
+// 8 and 9). A lane's row holds W words; P is the power of two >= W.
+// ---------------------------------------------------------------------------
+
+// Per-lane error bits, as the reference's kernels set them.
+#define TJ_ERR_BADCODE 1
+#define TJ_ERR_RUN 2
+#define TJ_ERR_TRUNC 4
+
+// Word w of the row: row[w & (P-1)] inside the row, 0 in the [W, P) gap
+// (the reference's binary-fold load over a P-word row), for reads past
+// the segment's end.
+__device__ __forceinline__ u32 tj_load_word(const u32* row, int w, int W, int P) {
+  int i = w & (P - 1);
+  return i < W ? __ldg(row + i) : 0u;
+}
+
+// 32-bit window at bit `cur`; the shift-by-32 case is guarded.
+__device__ __forceinline__ u32 tj_window(const u32* row, int cur, int W, int P) {
+  int w = cur >> 5;
+  int sh = cur & 31;
+  u32 hi = tj_load_word(row, w, W, P);
+  if (sh == 0) return hi;
+  return (hi << sh) | (tj_load_word(row, w + 1, W, P) >> (32 - sh));
+}
+
+// Canonical decode: the shortest length l whose maxcode admits the peeked
+// code; length 17 (and huffval[0]) when none does.
+__device__ __forceinline__ void tj_decode_symbol(u32 win, const int* mc, const int* vo,
+                                                 const uint8_t* hv, int& sym, int& len) {
+  len = 17;
+  int idx = 0;
+#pragma unroll
+  for (int l = 1; l <= 16; ++l) {
+    int peek = (int)(win >> (32 - l));
+    if (peek <= mc[l]) {
+      len = l;
+      idx = peek + vo[l];
+      break;
+    }
+  }
+  idx = idx < 0 ? 0 : (idx > 255 ? 255 : idx);
+  sym = hv[idx];
+}
+
+// EXTEND of the `size` (0..15) magnitude bits after a `len` (<= 17) bit code.
+__device__ __forceinline__ int tj_receive_extend(u32 win, int len, int size) {
+  if (size <= 0) return 0;
+  int mag = (int)((win << len) >> (32 - size));
+  return mag < (1 << (size - 1)) ? mag - (1 << size) + 1 : mag;
+}
+
+// The `n` (0..15) raw bits after a `len` (<= 17) bit code, no EXTEND.
+__device__ __forceinline__ int tj_receive_raw(u32 win, int len, int n) {
+  return n > 0 ? (int)((win << len) >> (32 - n)) : 0;
+}
+
 __device__ __forceinline__ int tj_descale(u32 x, int n) {
   return ((int)(x + (1u << (n - 1)))) >> n;
 }

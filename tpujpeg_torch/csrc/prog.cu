@@ -1,0 +1,429 @@
+// Kernels 7, 8 and 9: the progressive scan kinds of T.81 §G that carry
+// Huffman symbols, one thread per lane (restart segment), applied in
+// place to a batch's coefficient state. Kernel 7 (tj_prog_dc_first)
+// decodes DC first passes and stores pred << Al into the DC columns;
+// kernel 8 (tj_prog_ac_first) decodes AC first passes over Ss..Se with
+// EOB runs carried from block to block and adds val << Al into the band;
+// kernel 9 (tj_prog_ac_refine) applies AC successive-approximation
+// refinement (G.1.2.3) to the band of each block. DC refinement needs no
+// kernel: its bits sit at fixed positions, so the host unpacks them into
+// masks and the device ORs them in (kernels/wavefront_prog.py).
+//
+// They replace the Pallas kernels of tpujpeg/kernels/wavefront_prog.py:
+// _make_dc_first_kernel (pallas_call in _run_dc_first),
+// _make_ac_first_kernel (_run_ac_first) and _make_ac_refine_kernel
+// (_run_ac_refine). Those ran lanes in lockstep [8, K] vector groups, one
+// MCU per grid step, with the tables baked in (or as SMEM scalars), and
+// wrote [G, M, B|64, 8, K] lane-layout blocks that the host code then
+// converted to per-image grids (_flat_lanes, _scatter_dc_s,
+// _grids_to_lanes_s, .at[].add/.set). Here each thread walks its own lane
+// with data-dependent control flow, reads its row of words from device
+// memory, takes the tables as runtime data staged in shared memory, and
+// places each block at its raster index from the lane's first MCU (MCU g
+// -> block row (g / mcus_x) * v + dv, column (g % mcus_x) * h + dh; a
+// one-component scan walks blocks over width_blocks, so a padded grid's
+// pad blocks are never touched). The state is per frame component int32
+// [N, padded_blocks, 64] zigzag AC (column 0 left 0) and int32
+// [N, padded_blocks] DC, which pipeline.transform_batch takes as is.
+//
+// Kernel 9 is the reference's closed-form band machine (cumsums over the
+// 64 rows, rank chunks of 32 correction bits) in its serial form: the
+// band's nonzero pattern is a 64-bit mask, the stop of a (run, size)
+// symbol is the (r+1)-th zero at or after k (the 16th for ZRL), found by
+// clearing low set bits, and the nonzeros before it take one correction
+// bit each, in k order, from the cursor. Correction bits are consumed in
+// k order whatever the chunking, so the two forms read the same bits.
+//
+// What bounds them on the H100: as for kernel A, the per-symbol dependency
+// chain of each thread (window, up to 16 maxcode compares, huffval load,
+// cursor update) and warp divergence between lanes of unequal length;
+// kernel 9 adds a 256-byte read of each block's band and, where a bit
+// changed it, a 256-byte write. The design keeps a lane's state in
+// registers (kernel 9's band in a thread-local array) and never leaves
+// the lane's thread; sorting lanes by length, warp-cooperative decode and
+// a band kept in shared memory are later work.
+//
+// Semantics follow the reference's code, including on corrupt streams:
+//  * the window is kernel A's stateless tj_window: the reference's
+//    register pair never advances more than 32 bits at once, so it reads
+//    the same words, past the row's end included;
+//  * error codes are assigned, not ORed (RUN overwrites BADCODE on the
+//    same symbol); TRUNC (cursor past seg_bits + 7 on a lane with MCUs)
+//    is ORed once, at the end; a lane with an error stops advancing;
+//  * kernel 7: one predictor per scan component; a DC size above 15 is
+//    BADCODE and decodes as size 0; the block whose symbol raises still
+//    stores its predictor, later blocks of the lane store 0;
+//  * kernel 8: a pending EOB run skips a block and counts down; EOBr sets
+//    the run to (1 << r) - 1 + r extra bits; ZRL adds 16 to k and is never
+//    an error, even past Se; only a value with k + r > Se raises RUN; a
+//    value is added even on the symbol that raises BADCODE;
+//  * kernel 9: a size above 1 and a code longer than 16 bits are BADCODE;
+//    a run whose zero is not found is RUN, a ZRL whose 16th zero is not
+//    found runs to Se; a symbol that raises applies no correction but its
+//    bits still move the cursor; EOBr sets the run to (1 << r) + r extra
+//    bits and the run counts down when a tail completes, so a run pending
+//    at block entry makes the whole band one tail; a correction adds +P1
+//    or -P1 by sign where (v & P1) == 0; a newly significant +-P1 goes to
+//    the stop;
+//  * predictor sums, shifts and adds wrap modulo 2^32 like jnp's int32.
+
+#include "common.cuh"
+
+#define TJ_PROG_MAX_SP 4
+#define TJ_PROG_MAX_B 10
+#define TJ_PROG_THREADS 128
+
+typedef unsigned long long u64;
+
+// The lane plan every progressive kernel takes (kernels/wavefront_prog
+// ScanPlan): rows of W words, P the power of two >= W; lane_meta [L][3]
+// (image, first MCU, MCUs); tables [n_sp][34] maxcode | valoffset and
+// huffval [n_sp][256] of the scan's components.
+struct ProgLanes {
+  const u32* bits;
+  int W, P;
+  const int* seg_bits;
+  const int* lane_meta;
+  int L;
+  const int* tables;
+  const uint8_t* huffval;
+  int n_sp;
+  int* err_out;
+};
+
+__device__ __forceinline__ void stage_tables(const ProgLanes& a, int* s_tab, uint8_t* s_hv) {
+  for (int i = threadIdx.x; i < a.n_sp * 34; i += blockDim.x) s_tab[i] = a.tables[i];
+  for (int i = threadIdx.x; i < a.n_sp * 256; i += blockDim.x) s_hv[i] = a.huffval[i];
+}
+
+__device__ __forceinline__ int lane_err(const ProgLanes& a, int lane, int err, int cur, int lm) {
+  const bool trunc = cur > a.seg_bits[lane] + 7 && lm > 0;
+  return err | (trunc ? TJ_ERR_TRUNC : 0);
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 7: DC first.
+// ---------------------------------------------------------------------------
+
+struct DcFirstArgs {
+  ProgLanes ln;
+  int B, mcus_x, al;
+  int blk[TJ_PROG_MAX_B][3];     // (scan component, dv, dh) of each block of an MCU
+  int comp[TJ_PROG_MAX_SP][4];   // (h, v, padded_wb, padded_blocks) per scan component
+  int* dc[TJ_PROG_MAX_SP];       // int32 [N, padded_blocks] DC column per scan component
+};
+
+__global__ void __launch_bounds__(TJ_PROG_THREADS) prog_dc_first_kernel(DcFirstArgs a) {
+  __shared__ int s_tab[TJ_PROG_MAX_SP * 34];
+  __shared__ uint8_t s_hv[TJ_PROG_MAX_SP * 256];
+  __shared__ int s_blk[TJ_PROG_MAX_B * 3];
+  __shared__ int s_comp[TJ_PROG_MAX_SP * 4];
+  stage_tables(a.ln, s_tab, s_hv);
+  for (int i = threadIdx.x; i < a.B * 3; i += blockDim.x) s_blk[i] = a.blk[i / 3][i % 3];
+  for (int i = threadIdx.x; i < a.ln.n_sp * 4; i += blockDim.x) s_comp[i] = a.comp[i / 4][i % 4];
+  __syncthreads();
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= a.ln.L) return;
+
+  const int W = a.ln.W, P = a.ln.P;
+  const u32* row = a.ln.bits + (size_t)lane * W;
+  const int img = a.ln.lane_meta[lane * 3 + 0];
+  const int first = a.ln.lane_meta[lane * 3 + 1];
+  const int lm = a.ln.lane_meta[lane * 3 + 2];
+  int cur = 0, err = 0;
+  u32 pred[TJ_PROG_MAX_SP] = {0u, 0u, 0u, 0u};
+  for (int m = 0; m < lm; ++m) {
+    const int g = first + m;
+    const int my = g / a.mcus_x;
+    const int mx = g - my * a.mcus_x;
+    for (int b = 0; b < a.B; ++b) {
+      const int sp = s_blk[b * 3 + 0];
+      const int* tb = s_tab + sp * 34;
+      int out = 0;
+      if (err == 0) {
+        const u32 win = tj_window(row, cur, W, P);
+        int t, dlen;
+        tj_decode_symbol(win, tb, tb + 17, s_hv + sp * 256, t, dlen);
+        const bool bad = dlen > 16 || t > 15;
+        if (t > 15) t = 0;
+        pred[sp] += (u32)tj_receive_extend(win, dlen, t);
+        cur += dlen + t;
+        out = (int)(pred[sp] << a.al);
+        if (bad) err = TJ_ERR_BADCODE;
+      }
+      const int* c = s_comp + sp * 4;
+      const int brow = my * c[1] + s_blk[b * 3 + 1];
+      const int bcol = mx * c[0] + s_blk[b * 3 + 2];
+      a.dc[sp][(size_t)img * c[3] + (size_t)brow * c[2] + bcol] = out;
+    }
+  }
+  a.ln.err_out[lane] = lane_err(a.ln, lane, err, cur, lm);
+}
+
+// ---------------------------------------------------------------------------
+// Kernels 8 and 9: one component, one block per MCU.
+// ---------------------------------------------------------------------------
+
+struct AcArgs {
+  ProgLanes ln;
+  int width_blocks, padded_wb, padded_blocks;
+  int ss, se, al;
+  int* state;  // int32 [N, padded_blocks, 64] zigzag AC of the scan's component
+};
+
+__device__ __forceinline__ int* block_of(const AcArgs& a, int img, int g) {
+  const int brow = g / a.width_blocks;
+  const int bcol = g - brow * a.width_blocks;
+  return a.state + ((size_t)img * a.padded_blocks + (size_t)brow * a.padded_wb + bcol) * 64;
+}
+
+__global__ void __launch_bounds__(TJ_PROG_THREADS) prog_ac_first_kernel(AcArgs a) {
+  __shared__ int s_tab[34];
+  __shared__ uint8_t s_hv[256];
+  stage_tables(a.ln, s_tab, s_hv);
+  __syncthreads();
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= a.ln.L) return;
+
+  const int W = a.ln.W, P = a.ln.P;
+  const u32* row = a.ln.bits + (size_t)lane * W;
+  const int img = a.ln.lane_meta[lane * 3 + 0];
+  const int first = a.ln.lane_meta[lane * 3 + 1];
+  const int lm = a.ln.lane_meta[lane * 3 + 2];
+  int cur = 0, err = 0, eob = 0;
+  for (int m = 0; m < lm && err == 0; ++m) {
+    if (eob > 0) {
+      --eob;
+      continue;
+    }
+    int* blk = block_of(a, img, first + m);
+    int k = a.ss;
+    while (k <= a.se && err == 0) {
+      const u32 win = tj_window(row, cur, W, P);
+      int rs, alen;
+      tj_decode_symbol(win, s_tab, s_tab + 17, s_hv, rs, alen);
+      const int r = rs >> 4, s = rs & 15;
+      if (alen > 16) err = TJ_ERR_BADCODE;
+      if (s > 0) {
+        const int nk = k + r;
+        if (nk <= a.se)
+          blk[nk] = (int)((u32)blk[nk] + ((u32)tj_receive_extend(win, alen, s) << a.al));
+        else
+          err = TJ_ERR_RUN;
+        cur += alen + s;
+        k = nk + 1;
+      } else if (r < 15) {  // EOBr: this block ends, r extra bits give the run
+        eob = (1 << r) - 1 + tj_receive_raw(win, alen, r);
+        cur += alen + r;
+        break;
+      } else {  // ZRL
+        cur += alen;
+        k += 16;
+      }
+    }
+  }
+  a.ln.err_out[lane] = lane_err(a.ln, lane, err, cur, lm);
+}
+
+// Position of the n-th (1-based) set bit of m, or 64 when m has fewer.
+__device__ __forceinline__ int nth_set(u64 m, int n) {
+  if (__popcll(m) < n) return 64;
+  for (int i = 1; i < n; ++i) m &= m - 1;
+  return __ffsll((long long)m) - 1;
+}
+
+// One correction bit, in k order from the cursor, for each nonzero
+// coefficient whose bit is set in `nz`: where the bit is 1 and (v & p1) is
+// 0, v moves away from 0 by p1. Returns whether any value changed.
+__device__ __forceinline__ bool refine_nonzeros(const u32* row, int W, int P, int& cur, int* cv,
+                                                u64 nz, int p1) {
+  bool changed = false;
+  while (nz) {
+    const u32 win = tj_window(row, cur, W, P);
+    const int take = min(__popcll(nz), 32);
+    for (int i = 0; i < take; ++i) {
+      const int j = __ffsll((long long)nz) - 1;
+      nz &= nz - 1;
+      const int v = cv[j];
+      if (((win >> (31 - i)) & 1u) && (v & p1) == 0) {
+        cv[j] = (int)((u32)v + (u32)(v >= 0 ? p1 : -p1));
+        changed = true;
+      }
+    }
+    cur += take;
+  }
+  return changed;
+}
+
+__global__ void __launch_bounds__(TJ_PROG_THREADS) prog_ac_refine_kernel(AcArgs a) {
+  __shared__ int s_tab[34];
+  __shared__ uint8_t s_hv[256];
+  stage_tables(a.ln, s_tab, s_hv);
+  __syncthreads();
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= a.ln.L) return;
+
+  const int W = a.ln.W, P = a.ln.P;
+  const u32* row = a.ln.bits + (size_t)lane * W;
+  const int img = a.ln.lane_meta[lane * 3 + 0];
+  const int first = a.ln.lane_meta[lane * 3 + 1];
+  const int lm = a.ln.lane_meta[lane * 3 + 2];
+  const int ss = a.ss, se = a.se;
+  const int p1 = 1 << a.al;
+  const int m1 = (int)(0xFFFFFFFFu << a.al);
+  const u64 band = (~0ull >> (63 - se)) & (~0ull << ss);  // rows ss..se
+  int cur = 0, err = 0, eob = 0;
+  int cv[64];
+  for (int m = 0; m < lm && err == 0; ++m) {
+    int4* blk = (int4*)block_of(a, img, first + m);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int4 q = blk[i];
+      cv[4 * i] = q.x;
+      cv[4 * i + 1] = q.y;
+      cv[4 * i + 2] = q.z;
+      cv[4 * i + 3] = q.w;
+    }
+    u64 nz = 0ull;
+#pragma unroll
+    for (int j = 0; j < 64; ++j) nz |= (u64)(cv[j] != 0) << j;
+    nz &= band;
+    bool changed = false;
+    if (eob > 0) {
+      // A pending run: the whole band is one tail of correction bits.
+      changed = refine_nonzeros(row, W, P, cur, cv, nz, p1);
+      --eob;
+    } else {
+      int k = ss;
+      while (true) {
+        const u32 win = tj_window(row, cur, W, P);
+        int rs, alen;
+        tj_decode_symbol(win, s_tab, s_tab + 17, s_hv, rs, alen);
+        const int rr = rs >> 4, ds = rs & 15;
+        const bool is_eob = ds == 0 && rr < 15;
+        cur += alen + (ds > 0 ? 1 : (is_eob ? rr : 0));
+        if (alen > 16 || ds > 1) err = TJ_ERR_BADCODE;
+        int kstop = se + 1, place = 0;
+        if (is_eob) {
+          eob = (1 << rr) + tj_receive_raw(win, alen, rr);
+        } else {
+          // Stop: the (r+1)-th zero at or after k (16th for ZRL).
+          const int found = nth_set(~nz & band & (~0ull << k), ds > 0 ? rr + 1 : 16);
+          if (found < 64) {
+            kstop = found;
+            if (ds > 0) place = tj_receive_raw(win, alen, 1) ? p1 : m1;
+          } else if (ds > 0) {
+            err = TJ_ERR_RUN;
+          }
+        }
+        if (err) break;
+        const u64 below = kstop >= 64 ? ~0ull : (1ull << kstop) - 1ull;
+        changed |= refine_nonzeros(row, W, P, cur, cv, nz & below & (~0ull << k), p1);
+        if (place) {
+          cv[kstop] = (int)((u32)cv[kstop] + (u32)place);
+          changed = true;
+        }
+        k = kstop + 1;
+        if (is_eob) {
+          --eob;
+          break;
+        }
+        if (k > se) break;
+      }
+    }
+    if (changed) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        blk[i] = make_int4(cv[4 * i], cv[4 * i + 1], cv[4 * i + 2], cv[4 * i + 3]);
+    }
+  }
+  a.ln.err_out[lane] = lane_err(a.ln, lane, err, cur, lm);
+}
+
+// ---------------------------------------------------------------------------
+// C entry points. Pointers are device pointers except blk and comp of
+// tj_prog_dc_first, which are host int32 arrays read at launch.
+// ---------------------------------------------------------------------------
+
+static bool lanes_ok(const ProgLanes& l) {
+  return l.W > 0 && l.P >= l.W && (l.P & (l.P - 1)) == 0 && l.n_sp > 0 && l.n_sp <= TJ_PROG_MAX_SP;
+}
+
+static int blocks_for(int L) { return (L + TJ_PROG_THREADS - 1) / TJ_PROG_THREADS; }
+
+extern "C" int tj_prog_dc_first(const void* bits, int W, int P, const void* seg_bits,
+                                const void* lane_meta, int L, const void* tables,
+                                const void* huffval, int n_sp, const int* blk, int B,
+                                const int* comp, int mcus_x, int al, void* d0, void* d1, void* d2,
+                                void* d3, void* err, void* stream) {
+  if (L <= 0) return (int)cudaSuccess;
+  DcFirstArgs a{};
+  a.ln = ProgLanes{(const u32*)bits, W, P, (const int*)seg_bits, (const int*)lane_meta, L,
+                   (const int*)tables, (const uint8_t*)huffval, n_sp, (int*)err};
+  if (!lanes_ok(a.ln) || B <= 0 || B > TJ_PROG_MAX_B || mcus_x <= 0 || al < 0 || al > 15)
+    return (int)cudaErrorInvalidValue;
+  a.B = B;
+  a.mcus_x = mcus_x;
+  a.al = al;
+  for (int b = 0; b < B; ++b) {
+    for (int i = 0; i < 3; ++i) a.blk[b][i] = blk[b * 3 + i];
+    if (a.blk[b][0] < 0 || a.blk[b][0] >= n_sp) return (int)cudaErrorInvalidValue;
+  }
+  for (int s = 0; s < n_sp; ++s)
+    for (int i = 0; i < 4; ++i) a.comp[s][i] = comp[s * 4 + i];
+  void* dcs[TJ_PROG_MAX_SP] = {d0, d1, d2, d3};
+  for (int s = 0; s < n_sp; ++s) {
+    if (!dcs[s]) return (int)cudaErrorInvalidValue;
+    a.dc[s] = (int*)dcs[s];
+  }
+  prog_dc_first_kernel<<<blocks_for(L), TJ_PROG_THREADS, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+static int launch_ac(bool refine, const void* bits, int W, int P, const void* seg_bits,
+                     const void* lane_meta, int L, const void* tables, const void* huffval,
+                     int width_blocks, int padded_wb, int padded_blocks, int ss, int se, int al,
+                     void* state, void* err, void* stream) {
+  if (L <= 0) return (int)cudaSuccess;
+  AcArgs a{};
+  a.ln = ProgLanes{(const u32*)bits, W, P, (const int*)seg_bits, (const int*)lane_meta, L,
+                   (const int*)tables, (const uint8_t*)huffval, 1, (int*)err};
+  if (!lanes_ok(a.ln) || width_blocks <= 0 || padded_wb < width_blocks || padded_blocks <= 0 ||
+      ss < 1 || se < ss || se > 63 || al < 0 || al > 15 || !state)
+    return (int)cudaErrorInvalidValue;
+  a.width_blocks = width_blocks;
+  a.padded_wb = padded_wb;
+  a.padded_blocks = padded_blocks;
+  a.ss = ss;
+  a.se = se;
+  a.al = al;
+  a.state = (int*)state;
+  if (refine)
+    prog_ac_refine_kernel<<<blocks_for(L), TJ_PROG_THREADS, 0, (cudaStream_t)stream>>>(a);
+  else
+    prog_ac_first_kernel<<<blocks_for(L), TJ_PROG_THREADS, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// Kernel 8: state is the int32 [N, padded_blocks, 64] AC array of the
+// scan's component; a lane's MCU g is block (g / width_blocks,
+// g % width_blocks) of the padded grid.
+extern "C" int tj_prog_ac_first(const void* bits, int W, int P, const void* seg_bits,
+                                const void* lane_meta, int L, const void* tables,
+                                const void* huffval, int width_blocks, int padded_wb,
+                                int padded_blocks, int ss, int se, int al, void* state, void* err,
+                                void* stream) {
+  return launch_ac(false, bits, W, P, seg_bits, lane_meta, L, tables, huffval, width_blocks,
+                   padded_wb, padded_blocks, ss, se, al, state, err, stream);
+}
+
+// Kernel 9: as kernel 8; state must start on a 16-byte boundary (each
+// block moves as 16 int4 words).
+extern "C" int tj_prog_ac_refine(const void* bits, int W, int P, const void* seg_bits,
+                                 const void* lane_meta, int L, const void* tables,
+                                 const void* huffval, int width_blocks, int padded_wb,
+                                 int padded_blocks, int ss, int se, int al, void* state, void* err,
+                                 void* stream) {
+  return launch_ac(true, bits, W, P, seg_bits, lane_meta, L, tables, huffval, width_blocks,
+                   padded_wb, padded_blocks, ss, se, al, state, err, stream);
+}

@@ -11,9 +11,11 @@
 // here each thread walks its own lane with data-dependent control flow,
 // reads its row of words from device memory, and takes the tables and
 // quantizer sets as runtime data staged in shared memory. The two emits
-// share one decode loop (decode_lane), templated on the epilogue; the
-// reference's coefficient emit needed an assembly pass of transposes
-// after the kernel, which the raster-index stores here make unnecessary.
+// share one decode loop (decode_lane), templated on the epilogue, and
+// take the word load, window, symbol decode and EXTEND from common.cuh,
+// as the progressive kernels of prog.cu do. The reference's coefficient
+// emit needed an assembly pass of transposes after the kernel, which the
+// raster-index stores here make unnecessary.
 //
 // What bounds them on the H100: the per-symbol dependency chain (window,
 // 16 maxcode compares, huffval lookup, cursor update) of each thread, and
@@ -41,9 +43,6 @@
 
 #include "common.cuh"
 
-#define TJ_ERR_BADCODE 1
-#define TJ_ERR_RUN 2
-#define TJ_ERR_TRUNC 4
 #define TJ_MAX_B 10
 
 // ZIGZAG[k]: natural index of the k-th zigzag coefficient (T.81 A.6).
@@ -59,46 +58,6 @@ static __constant__ int8_t kZigzag[64] = {
 struct Outputs {
   void* p[4];
 };
-
-__device__ __forceinline__ u32 load_word(const u32* row, int w, int W, int P) {
-  int i = w & (P - 1);
-  return i < W ? __ldg(row + i) : 0u;
-}
-
-// 32-bit window at bit `cur`; the shift-by-32 case is guarded.
-__device__ __forceinline__ u32 window(const u32* row, int cur, int W, int P) {
-  int w = cur >> 5;
-  int sh = cur & 31;
-  u32 hi = load_word(row, w, W, P);
-  if (sh == 0) return hi;
-  return (hi << sh) | (load_word(row, w + 1, W, P) >> (32 - sh));
-}
-
-// Canonical decode: the shortest length l whose maxcode admits the peeked
-// code; length 17 (and huffval[0]) when none does.
-__device__ __forceinline__ void decode_symbol(u32 win, const int* mc, const int* vo,
-                                              const uint8_t* hv, int& sym, int& len) {
-  len = 17;
-  int idx = 0;
-#pragma unroll
-  for (int l = 1; l <= 16; ++l) {
-    int peek = (int)(win >> (32 - l));
-    if (peek <= mc[l]) {
-      len = l;
-      idx = peek + vo[l];
-      break;
-    }
-  }
-  idx = idx < 0 ? 0 : (idx > 255 ? 255 : idx);
-  sym = hv[idx];
-}
-
-// EXTEND of the `size` (0..15) magnitude bits after a `len` (<= 17) bit code.
-__device__ __forceinline__ int receive_extend(u32 win, int len, int size) {
-  if (size <= 0) return 0;
-  int mag = (int)((win << len) >> (32 - size));
-  return mag < (1 << (size - 1)) ? mag - (1 << size) + 1 : mag;
-}
 
 // Shared memory: tables [B][2][34] int, qsets [nq][B][64] int (natural
 // order, pixels only), blk [B][4] int, comp [n_planes][4] int, huffval
@@ -177,22 +136,22 @@ __device__ __forceinline__ void decode_lane(const LaneArgs& a, const Smem& sm, c
       u32 dc = 0u;
       if (err == 0) {
         // DC symbol, EXTEND, predictor.
-        u32 win = window(row, cur, W, P);
+        u32 win = tj_window(row, cur, W, P);
         int t, dlen;
-        decode_symbol(win, tb, tb + 17, hv, t, dlen);
+        tj_decode_symbol(win, tb, tb + 17, hv, t, dlen);
         const bool bad = dlen > 16 || t > 15;
         if (t > 15) t = 0;
-        pred[ci] += (u32)receive_extend(win, dlen, t);
+        pred[ci] += (u32)tj_receive_extend(win, dlen, t);
         cur += dlen + t;
         if (bad) err = TJ_ERR_BADCODE;
         // AC symbols until EOB, k = 64 or an error.
         int k = 1;
         while (k < 64 && err == 0) {
-          win = window(row, cur, W, P);
+          win = tj_window(row, cur, W, P);
           int rs, alen;
-          decode_symbol(win, tb + 34, tb + 51, hv + 256, rs, alen);
+          tj_decode_symbol(win, tb + 34, tb + 51, hv + 256, rs, alen);
           const int run = rs >> 4, size = rs & 15;
-          const int val = receive_extend(win, alen, size);
+          const int val = tj_receive_extend(win, alen, size);
           const int nk = k + (size > 0 ? run : 0);
           if (size > 0 && nk <= 63) coef[Epi::kNatural ? sm.zz[nk] : nk] = val;
           cur += alen + size;

@@ -12,7 +12,9 @@ staged path:
 1. entropy to zigzag coefficients: 'auto' takes the native C++ decoder
    on the host (the python oracle when the native library does not
    build, as the reference's ``auto`` does), 'native' and 'python' name
-   one, 'wavefront' runs kernel 2 on `device` (baseline only);
+   one, 'wavefront' runs kernel 2 on `device` (kernels 7-9 for a
+   progressive frame; 'auto' keeps progressive on the host, as the
+   reference's does);
 2. ``kernels.pipeline.transform_frame`` on `device` (kernel 6, then the
    color kernels; their plain versions for CPU tensors), or the plain
    torch transform with ``transform_engine='torch'``.

@@ -9,8 +9,9 @@ holds the port to, are made where PIL is installed and committed:
 Each file is a ``tests/corpus.py`` call; ``manifest.json`` records the
 call, the path that takes it (``fused``: a restart-segmented single
 scan, kernel A; ``staged``: progressive, marker-free or multi-scan,
-the coefficient path), the decoded shape and the sha256 of PIL's
-decoded bytes.
+the coefficient path with host entropy or kernel 2; ``progressive``:
+restart-segmented progressive, the progressive scan kernels), the
+decoded shape and the sha256 of PIL's decoded bytes.
 ``tests/test_torch_fixtures.py`` checks the manifest against PIL.
 
 ``faults`` in the manifest names the corruptions ``chip_smoke.py``
@@ -31,7 +32,8 @@ ROOT = os.path.dirname(os.path.dirname(HERE))
 # name -> corpus keyword arguments (make_jpeg unless "maker" names
 # another generator). "420_2048" is bench.py's corpus shape (2048^2, q85,
 # 4:2:0, restart every 4 MCUs, first seed); "prog_2048" and "norst_2048"
-# are the same image written progressive and without restart markers.
+# are the same image written progressive and without restart markers, and
+# "prog_rst_2048" progressive with its restart markers.
 FIXTURES = {
     "420_2048": dict(w=2048, h=2048, seed=7, quality=85, subsampling=2, restart_blocks=4),
     "420_odd": dict(w=129, h=65, seed=9, quality=85, subsampling=2, restart_blocks=3),
@@ -42,8 +44,15 @@ FIXTURES = {
     "norst_2048": dict(w=2048, h=2048, seed=7, quality=85, subsampling=2),
     "multiscan": dict(maker="make_multiscan_jpeg", w=512, h=384, seed=9, subsampling=2,
                       restart_blocks=4),
+    "prog_rst_2048": dict(w=2048, h=2048, seed=7, quality=85, subsampling=2, progressive=True,
+                          restart_blocks=4),
+    "prog_444": dict(w=512, h=384, seed=12, quality=85, subsampling=0, progressive=True,
+                     restart_blocks=4),
+    "prog_gray": dict(w=512, h=384, seed=13, quality=85, mode="L", progressive=True,
+                      restart_blocks=4),
 }
 STAGED = ("prog_2048", "norst_2048", "multiscan")
+PROGRESSIVE = ("prog_rst_2048", "prog_444", "prog_gray")
 
 # One member of a batch of `batch` copies of `fixture` gets its scan
 # payload (restart markers included) overwritten with `fill` bytes; the
@@ -76,7 +85,7 @@ def main() -> int:
         entries[name] = dict(
             file=f"{name}.jpg",
             call=call_text(kw),
-            path="staged" if name in STAGED else "fused",
+            path="staged" if name in STAGED else "progressive" if name in PROGRESSIVE else "fused",
             shape=list(img.shape),
             file_sha256=hashlib.sha256(data).hexdigest(),
             pil_sha256=hashlib.sha256(img.tobytes()).hexdigest(),

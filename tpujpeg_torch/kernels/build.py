@@ -61,6 +61,22 @@ _SIGNATURES = {
         _P, _P, _P, _P,          # coefficient arrays 0..3
         _P, _P,                  # err, stream
     ],
+    "tj_prog_dc_first": [
+        _P, _I, _I,              # bits, W, P
+        _P, _P, _I,              # seg_bits, lane_meta, L
+        _P, _P, _I,              # tables, huffval, n_sp
+        _P, _I, _P, _I, _I,      # blk (host), B, comp (host), mcus_x, al
+        _P, _P, _P, _P,          # DC columns 0..3
+        _P, _P,                  # err, stream
+    ],
+    "tj_prog_ac_first": [
+        _P, _I, _I,              # bits, W, P
+        _P, _P, _I,              # seg_bits, lane_meta, L
+        _P, _P,                  # tables, huffval
+        _I, _I, _I,              # width_blocks, padded_wb, padded_blocks
+        _I, _I, _I,              # ss, se, al
+        _P, _P, _P,              # state, err, stream
+    ],
     "tj_dequant_idct_islow": [
         _P, _P, _I, _P,          # coef, qtab, per_image_q, dc
         _I, _I, _I, _P, _P,      # N, padded_hb, padded_wb, out, stream
@@ -78,6 +94,7 @@ _SIGNATURES = {
         _I, _I, _I, _P, _P,                  # N, H, W, out, stream
     ],
 }
+_SIGNATURES["tj_prog_ac_refine"] = _SIGNATURES["tj_prog_ac_first"]
 
 
 def _sources() -> Sequence[str]:

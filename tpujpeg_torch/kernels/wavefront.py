@@ -11,11 +11,13 @@ Port of the restart-segment part of
 and ``tj_wavefront_coeff`` in ``csrc/wavefront.cu``, and the coefficient
 entries ``decode_batch_to_coeffs`` (the batch layout kernel 6 takes),
 ``decode_batch_to_device`` (the reference's per-image split of it),
-``decode_multiscan_to_device`` and ``decode_all_scans``. The plain version of both kernels,
-``decode_lanes_plain``, is a lane-vectorized torch state machine with
-the same steps as the Pallas kernel; the wrappers
-``decode_lanes_to_planes`` and ``decode_lanes_to_coeffs`` take it only
-for tensors on the CPU.
+``decode_multiscan_to_device`` and ``decode_all_scans``, the wavefront
+entropy engine of ``decode()``, which hands progressive frames to
+``wavefront_prog`` (kernels 7-9) as the reference's does. The plain
+version of both kernels, ``decode_lanes_plain``, is a lane-vectorized
+torch state machine with the same steps as the Pallas kernel; the
+wrappers ``decode_lanes_to_planes`` and ``decode_lanes_to_coeffs`` take
+it only for tensors on the CPU.
 
 The TPU layout does not carry over: lanes are a flat [L] axis (no
 [G, 8, K] sublane groups), each lane reads its own row of words from
@@ -50,7 +52,6 @@ _ERR_TRUNC = 4
 
 # Where each unsupported stream shape will be handled.
 _LATER_NORST = "marker-free and oversize-segment streams arrive with the marker-free slice"
-_LATER_PROG = "progressive streams arrive with the progressive slice"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,7 +192,9 @@ def build_block_plan(jpegs: Sequence) -> LanePlan:
     for img_i, jpeg in enumerate(jpegs):
         frame = jpeg.frame
         if frame.progressive:
-            raise JpegUnsupportedError(f"baseline only: {_LATER_PROG}")
+            raise JpegUnsupportedError(
+                "baseline only: progressive frames take wavefront_prog.decode_all_scans_to_rgb_batch"
+            )
         key = (frame.height, frame.width, tuple((c.h, c.v) for c in frame.components))
         if key != key0:
             raise JpegUnsupportedError("mixed geometry in one batch: batch buckets arrive later")
@@ -393,6 +396,28 @@ def _receive_extend(win: torch.Tensor, length: torch.Tensor, size: torch.Tensor)
     return torch.where(neg, mag - (1 << size) + 1, mag)
 
 
+def lane_windows(bits: torch.Tensor):
+    """For int32 [L, W] word rows, the function cur -> the 32-bit window
+    at bit cur of each lane (int64 tensors). A word w reads the
+    reference's load: row[w mod P] inside the row, 0 in the [W, P) gap,
+    for P the power of two >= W (reads past the segment's end)."""
+    L, W = bits.shape
+    P = 1 << max(W - 1, 1).bit_length()
+    words = bits.to(torch.int64) & 0xFFFFFFFF
+
+    def load(w):
+        i = w & (P - 1)
+        v = words.gather(1, i.clamp(max=W - 1)[:, None])[:, 0]
+        return torch.where(i < W, v, 0)
+
+    def window(cur):
+        w, sh = cur >> 5, cur & 31
+        hi, lo = load(w), load(w + 1)
+        return ((hi << sh) & 0xFFFFFFFF) | torch.where(sh == 0, 0, lo >> (32 - sh))
+
+    return window
+
+
 def _decode_symbol(win: torch.Tensor, mc, vo, huffval: torch.Tensor):
     """Canonical decode for every lane: (symbol, code length), length 17
     for an invalid code. The shortest length whose maxcode admits the
@@ -423,9 +448,8 @@ def decode_lanes_plain(plan: LanePlan, layout: PlaneLayout, outs: Sequence[torch
     if emit not in ("pixels", "coeff"):
         raise ValueError(f"emit {emit!r}")
     dev = plan.bits.device
-    L, W = plan.bits.shape
-    P = 1 << max(W - 1, 1).bit_length()
-    words = plan.bits.to(torch.int64) & 0xFFFFFFFF
+    L = plan.n_lanes
+    window = lane_windows(plan.bits)
     tbl = plan.tables.tolist()
     hv = plan.huffval.to(torch.int64)
     lane_m = plan.lane_m.to(torch.int64)
@@ -434,18 +458,6 @@ def decode_lanes_plain(plan: LanePlan, layout: PlaneLayout, outs: Sequence[torch
     if emit == "pixels":
         qlane = plan.qsets[plan.lane_qset.to(torch.int64)]      # [L, B, 64]
     r8 = torch.arange(8, device=dev)
-
-    def load(w):
-        # The reference's word load: row[w mod P] inside the row, 0 in
-        # the [W, P) gap, for reads past the segment's end.
-        i = w & (P - 1)
-        v = words.gather(1, i.clamp(max=W - 1)[:, None])[:, 0]
-        return torch.where(i < W, v, 0)
-
-    def window(cur):
-        w, sh = cur >> 5, cur & 31
-        hi, lo = load(w), load(w + 1)
-        return ((hi << sh) & 0xFFFFFFFF) | torch.where(sh == 0, 0, lo >> (32 - sh))
 
     cur = torch.zeros(L, dtype=torch.int64, device=dev)
     e = torch.zeros(L, dtype=torch.int64, device=dev)
@@ -737,13 +749,20 @@ def decode_multiscan_to_device(jpeg, config: DecodeConfig = DEFAULT_CONFIG,
 def decode_all_scans(jpeg, config: DecodeConfig = DEFAULT_CONFIG,
                      device="cuda") -> List[torch.Tensor]:
     """The wavefront entropy engine for one image: per frame component,
-    int32 [padded_blocks, 64] zigzag coefficients on `device`, from
-    kernel 2. Baseline only: progressive streams raise
-    JpegUnsupportedError naming the progressive slice, and streams whose
-    segments exceed the lane row (marker-free files, huge restart
-    intervals) raise naming the marker-free slice."""
+    int32 [padded_blocks, 64] zigzag coefficients on `device`. A
+    progressive frame runs its scans through kernels 7-9
+    (``wavefront_prog.decode_all_scans``), and its DC columns are merged
+    into coefficient 0; a multi-scan baseline frame decodes per component
+    (``decode_multiscan_to_device``); any other through kernel 2. Streams
+    whose segments exceed the lane row (marker-free files, huge restart
+    intervals) raise JpegUnsupportedError naming the marker-free slice."""
     if jpeg.frame.progressive:
-        raise JpegUnsupportedError(f"wavefront entropy engine: {_LATER_PROG}")
+        from . import wavefront_prog
+
+        acs, dcs = wavefront_prog.decode_all_scans(jpeg, device)
+        for ac, dc in zip(acs, dcs):
+            ac[:, 0] = dc
+        return acs
     if len(jpeg.scans) > 1 and all(s.n_comps == 1 for s in jpeg.scans):
         return decode_multiscan_to_device(jpeg, config, device)
     comps, _ = decode_batch_to_device([jpeg], config, strict=True, device=device)
