@@ -8,7 +8,7 @@ in tpujpeg_torch/fixtures/); it imports neither JAX nor PIL nor any file
 of tpujpeg/. Phases, one JSON line each:
 
 1. device: the card's name and power limit.
-2. build: nvcc builds the nine kernels into tpujpeg_torch/_build/ (one
+2. build: nvcc builds the eleven kernels into tpujpeg_torch/_build/ (one
    nvcc per source, all started together).
 3. kernel_vs_plain: on every fused-path fixture at batch 2, kernel A's
    planes and error bits, kernel 2's coefficients and error bits,
@@ -20,6 +20,10 @@ of tpujpeg/. Phases, one JSON line each:
    progressive fixture (states, DC columns and error bits equal, RGB
    hashing to PIL's), and on a corrupted batch of 3. kernel_timing holds
    them to their plain versions again on the progressive phase's batch.
+   And the planar 4:2:0 and 4:2:2 kernels (the packed16 layout) against
+   their plain versions on the 4:2:0/4:2:2 fixtures at batch 2 (an odd
+   width cropped to even, after the wrapper refused it) and on random
+   planes with even widths and odd heights.
 4. main_path: decode_batch_to_rgb of 32 copies of the 2048x2048 q85
    4:2:0 fixture (restart every 4 MCUs), one warm-up and 3 timed runs;
    the launch counters, zeroed just before, show kernels A and B ran
@@ -36,16 +40,38 @@ of tpujpeg/. Phases, one JSON line each:
    and 3 timed runs, counted apart: per call kernel 7 once, 8 and 9
    four times each, kernel 6 three times and B once, and neither A nor
    2. The RGB equals the main path's byte for byte and PIL's hash.
-7. kernel_timing: each kernel and its plain version, timed with CUDA
+7. stream: decode_batch_pipelined over 4 chunks of 32 copies of the
+   2048x2048 fixture (chunk_size 32, depth 2, min(3, cpu count) prep
+   threads), with layout="packed16" and "nhwc" (and packed16 on one
+   prep thread), one warm-up and 3 timed runs each, counted apart:
+   kernel A and the 4:2:0 planar kernel ran for packed16, A and B for
+   nhwc. Every image equals the main path's RGB (packed16 as its planar
+   bytes) and PIL's hash. Also the host-prep rate on one thread, the
+   device-only rate (plans built and uploaded before the clock), and a
+   packed16 chunk of the 4:2:2 fixture (A and the 4:2:2 planar kernel),
+   and the packed16 stream with pinned against pageable plans, 4 runs
+   each alternated, the first of each a warm-up.
+8. batch: decode_batch_on_device and decode_batch on one list of every
+   fixture (fused, staged, progressive, marker-free, multi-scan), one
+   member with its scan payload zeroed and bytes that are no JPEG: each
+   image hashes to PIL's or fails with the manifest's exception class,
+   each takes its rung (stats.entropy_engine: the device ladder keeps
+   every fixture on the card but the two marker-free ones; decode_batch
+   is host entropy throughout), and the kernels that ran are exactly the
+   rungs' kernels.
+9. kernel_timing: each kernel and its plain version, timed with CUDA
    events on the main, staged and progressive paths' inputs (kernels
    7-9 and their plain versions: summed over the scans of their kind at
    batch 32, each scan run from its own input state, the kernel's output
    state and error bits equal to the plain version's), beside its
    bound (bytes over 3.35 TB/s or integer operations over the card's
-   issue rate, whichever is larger).
-8. faults: one corrupted member of a batch fails with the manifest's
+   issue rate, whichever is larger). The planar kernels beside kernel B
+   also on random 32 x 2048^2 planes (tools/color_probe.py's and
+   color_profile.py's A/B), and the tail split of tools/tail_variants.py:
+   kernel A alone, A + B and A + the planar kernel.
+10. faults: one corrupted member of a batch fails with the manifest's
    exception class; the other members stay bit-exact.
-9. decode: tpujpeg_torch.decode of fused fixtures, and of the staged
+11. decode: tpujpeg_torch.decode of fused fixtures, and of the staged
    ones (progressive and marker-free 2048^2 through native entropy,
    kernel 6 and kernel B; multi-scan with entropy_engine="wavefront",
    kernel 2 per component; the restart-segmented progressive 2048^2
@@ -83,7 +109,18 @@ KERNELS = {
     "prog_dc_first": ("tpujpeg_torch/csrc/prog.cu", "tpujpeg/kernels/wavefront_prog.py:236"),
     "prog_ac_first": ("tpujpeg_torch/csrc/prog.cu", "tpujpeg/kernels/wavefront_prog.py:382"),
     "prog_ac_refine": ("tpujpeg_torch/csrc/prog.cu", "tpujpeg/kernels/wavefront_prog.py:710"),
+    "upsample_color_h2v2_planar": (
+        "tpujpeg_torch/csrc/sample_color.cu",
+        "tpujpeg/kernels/sample_color.py:97 (packed_words=True); P1-P6: tools/color_probe.py:79, "
+        ":129, :193, :249, tools/tail_variants.py:111, tools/color_profile.py:79"),
+    "upsample_color_h2v1_planar": (
+        "tpujpeg_torch/csrc/sample_color.cu", "tpujpeg/kernels/sample_color.py:146 (packed_words=True)"),
 }
+STREAM_CHUNKS = 4   # the stream phase's chunks of MAIN_BATCH images
+# The batch phase's rung for the fixtures whose manifest path does not
+# name it: the marker-free streams take host entropy, the multi-scan file
+# kernel 2 per scan.
+BATCH_RUNG = {"prog_2048": "native", "norst_2048": "native", "multiscan": "wavefront-coeff"}
 PROG_MAIN = "prog_rst_2048"   # the progressive phase's fixture
 PROG_KERNEL = {"dc_first": "prog_dc_first", "ac_first": "prog_ac_first", "ac_refine": "prog_ac_refine"}
 
@@ -116,7 +153,8 @@ INT32_OPS_PER_S = 132 * 128 * 2 * 1.98e9
 # written (the kernel adds into a zeroed band); for AC refine the band
 # read, plus those sectors written (a block goes back only if changed).
 OPS_IDCT_BLOCK = 1376
-OPS_COLOR_PIXEL = {"upsample_color_h2v2": 32, "upsample_color_h2v1": 30, "color_444": 22}
+OPS_COLOR_PIXEL = {"upsample_color_h2v2": 32, "upsample_color_h2v1": 30, "color_444": 22,
+                   "upsample_color_h2v2_planar": 32, "upsample_color_h2v1_planar": 30}
 OPS_SYMBOL = 8
 OPS_CORRECTION_BIT = 2
 
@@ -136,6 +174,27 @@ def emit(phase, **kw):
 
 def sha(a) -> str:
     return hashlib.sha256(a.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def zero_payload(data: bytes) -> bytes:
+    """The stream with every entropy-coded byte of its first scan zeroed
+    and its restart markers kept (the manifest's fill-0 fault, in bytes)."""
+    d = bytearray(data)
+    sos = d.index(b"\xff\xda")
+    i = sos + 2 + int.from_bytes(d[sos + 2 : sos + 4], "big")
+    while i < len(d) - 2:
+        if d[i] == 0xFF and 0xD0 <= d[i + 1] <= 0xD7:
+            i += 2
+            continue
+        d[i] = 0
+        i += 1
+    return bytes(d)
+
+
+def planar_bytes(torch, packed):
+    """Planar uint16 [..., 3, H, W/2] -> its bytes as uint8 [..., H, W, 3]."""
+    *lead, c, h, w2 = packed.shape
+    return packed.view(torch.uint8).view(*lead, c, h, 2 * w2).movedim(-3, -1)
 
 
 def nvidia_smi() -> str:
@@ -257,6 +316,26 @@ def main() -> int:
     }
     color_of = {"420_2048": "upsample_color_h2v2", "420_odd": "upsample_color_h2v2",
                 "422": "upsample_color_h2v1", "444": "color_444"}
+    planar_fns = {
+        "upsample_color_h2v2": ("upsample_color_h2v2_planar", sc.upsample_color_h2v2_packed,
+                                sc.upsample_color_h2v2_packed_plain),
+        "upsample_color_h2v1": ("upsample_color_h2v1_planar", sc.upsample_color_h2v1_packed,
+                                sc.upsample_color_h2v1_packed_plain),
+    }
+    planar_err = {"upsample_color_h2v2_planar": 0, "upsample_color_h2v1_planar": 0}
+
+    def planar_vs_plain(cname, ins, nhwc=None):
+        """A planar kernel, its plain version and (if given) the NHWC
+        kernel's output on the same planes: equal bytes."""
+        pname, kern, plain = planar_fns[cname]
+        got = kern(*ins)
+        torch.cuda.synchronize()
+        err = max_abs(torch, got, plain(*ins))
+        check(err == 0, f"{pname} != plain ({err}) on {tuple(ins[0].shape)}")
+        if nhwc is not None:
+            check(torch.equal(planar_bytes(torch, got), nhwc), f"{pname} bytes != the NHWC kernel's")
+        planar_err[pname] = max(planar_err[pname], err)
+        return err
 
     def lanes(plan, geoms, fn):
         """A lane kernel (decode_lanes_to_planes: A, _to_coeffs: 2) and its
@@ -310,11 +389,37 @@ def main() -> int:
             rec["color_max_abs_err"] = max_abs(torch, out_k, out_p)
             check(rec["color_max_abs_err"] == 0, f"{name}: color kernel != plain")
             check(sha(out_k[0]) == manifest["fixtures"][name]["pil_sha256"], f"{name}: RGB != PIL")
+            if color_of[name] in planar_fns:
+                w = ins[0].shape[2]
+                if w % 2:
+                    try:
+                        planar_fns[color_of[name]][1](*ins)
+                    except ValueError:
+                        pass
+                    else:
+                        raise SmokeError(f"{name}: the planar kernel took an odd width")
+                    w -= 1
+                    ins = [ins[0][:, :, :w]] + [c[:, :, : w // 2] for c in ins[1:]]
+                    out_k = kern(*ins)
+                rec["planar_max_abs_err"] = planar_vs_plain(color_of[name], ins, out_k)
         else:
             c = jpegs[0].frame.components[0]
             gray = planes_k[0][0, : c.dheight, : c.dwidth]
             check(sha(gray) == manifest["fixtures"][name]["pil_sha256"], f"{name}: gray != PIL")
         emit("kernel_vs_plain", **rec)
+
+    # The planar kernels on random planes: even widths, odd heights, and
+    # row strides that are odd (byte loads) or even (16-bit loads).
+    gen = torch.Generator().manual_seed(3)
+    for cname, (h, w, pad) in (("upsample_color_h2v2", (1023, 2048, 0)), ("upsample_color_h2v2", (37, 50, 5)),
+                               ("upsample_color_h2v1", (511, 1024, 0)), ("upsample_color_h2v1", (9, 130, 3))):
+        hc = (h + 1) // 2 if cname == "upsample_color_h2v2" else h
+        y = torch.randint(0, 256, (2, h, w + pad), generator=gen, dtype=torch.uint8).to(dev)[:, :, :w]
+        cb, cr = (torch.randint(0, 256, (2, hc, w // 2 + pad), generator=gen, dtype=torch.uint8).to(dev)[:, :, : w // 2]
+                  for _ in range(2))
+        err = planar_vs_plain(cname, (y, cb, cr), color_fns[cname][0](y, cb, cr))
+        emit("kernel_vs_plain", random_planes=[2, h, w], row_stride=w + pad, kernel=planar_fns[cname][0],
+             max_abs_err=err)
 
     def events():
         return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -491,8 +596,9 @@ def main() -> int:
     for i in range(4):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        prgb, failures = tpujpeg_torch.decode_all_scans_to_rgb_batch(pjpegs, config, device=dev)
+        prgb, playout, failures = tpujpeg_torch.decode_all_scans_to_rgb_batch(pjpegs, config, device=dev)
         torch.cuda.synchronize()
+        check(playout == "nhwc", f"progressive layout {playout}")
         if i:
             walls.append(time.perf_counter() - t0)
         check(not failures, f"progressive failures: {failures}")
@@ -514,9 +620,176 @@ def main() -> int:
          words_per_scan=[st.n_words if isinstance(st, wp.ScanPlan) else None for st in psteps],
          state_bytes=state_bytes,
          dc_refine_ors=sum(len(st.comp_indices) for st in psteps if isinstance(st, wp.DcRefine)))
+    main_image = fused_rgb[0].clone()
     del prgb, fused_rgb
 
-    # 6. Each kernel against its plain version on the main path's inputs.
+    # 7. stream: 4 chunks of 32 copies of the main fixture through
+    # decode_batch_pipelined, each layout counted apart.
+    from tpujpeg_torch.parallel import stream as stream_mod
+
+    want_sha = manifest["fixtures"]["420_2048"]["pil_sha256"]
+    sdatas = [datas["420_2048"]] * (STREAM_CHUNKS * MAIN_BATCH)
+    smp = len(sdatas) * main_image.shape[0] * main_image.shape[1] / 1e6
+    workers = min(3, os.cpu_count() or 1)
+    scfg = tpujpeg_torch.DecodeConfig(to_numpy=False)
+    main_planar = main_image.permute(2, 0, 1).contiguous().view(torch.uint16)
+    stream_walls = {}
+    stream_launches = {}
+    for layout, nw in (("packed16", workers), ("nhwc", workers), ("packed16", 1)):
+        color = "upsample_color_h2v2_planar" if layout == "packed16" else "upsample_color_h2v2"
+        walls = []
+        for i in range(4):
+            if i == 1:
+                build.LAUNCHES.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = tpujpeg_torch.decode_batch_pipelined(sdatas, scfg, chunk_size=MAIN_BATCH, depth=2,
+                                                       prep_workers=nw, layout=layout, device=dev)
+            torch.cuda.synchronize()
+            if i:
+                walls.append(time.perf_counter() - t0)
+            check(not res.errors, f"stream {layout}: failures {res.errors}")
+            check({st.entropy_engine for st in res.stats} == {"wavefront-fused"}
+                  and {st.transform_engine for st in res.stats} == {"cuda"},
+                  f"stream {layout}: engines {set((st.entropy_engine, st.transform_engine) for st in res.stats)}")
+        got = {k: build.LAUNCHES.get(k, 0) for k in KERNELS}
+        check({k: n for k, n in got.items() if n} == {"wavefront_pixels": 3 * STREAM_CHUNKS, color: 3 * STREAM_CHUNKS},
+              f"stream {layout}: launches {got}")
+        want_img = main_planar if layout == "packed16" else main_image
+        check(all(img.dtype == want_img.dtype and torch.equal(img, want_img) for img in res.images),
+              f"stream {layout}: an image differs from the main path's RGB")
+        last = res.images[-1] if layout == "nhwc" else planar_bytes(torch, res.images[-1])
+        check(sha(last) == want_sha, f"stream {layout}: image != PIL")
+        key = f"{layout}_{nw}_workers"
+        stream_walls[key] = walls
+        if nw == workers:
+            stream_launches[layout] = got
+        emit("stream", layout=layout, prep_workers=nw, images=len(sdatas), chunk_size=MAIN_BATCH, depth=2,
+             megapixels=smp, wall_s=walls, wall_median_s=statistics.median(walls),
+             mp_per_s=smp / statistics.median(walls), launches=got, cpu_count=os.cpu_count(),
+             image_dtype=str(res.images[0].dtype), image_shape=list(res.images[0].shape))
+        del res
+    launches["upsample_color_h2v2_planar"] = stream_launches["packed16"]["upsample_color_h2v2_planar"]
+
+    # Pinned against pageable plans: the same packed16 stream with the prep
+    # threads' planner writing pageable rows, runs alternated after one
+    # warm-up each.
+    real_prep = stream_mod._prep
+    pin_walls = {"pinned": [], "pageable": []}
+    for i, plans_in in enumerate(["pinned", "pageable"] * 4):
+        if plans_in == "pageable":
+            stream_mod._prep = lambda datas_, members, _pin: real_prep(datas_, members, False)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = tpujpeg_torch.decode_batch_pipelined(sdatas, scfg, chunk_size=MAIN_BATCH, depth=2,
+                                                       prep_workers=workers, layout="packed16", device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            stream_mod._prep = real_prep
+        if i >= 2:
+            pin_walls[plans_in].append(wall)
+        check(not res.errors and all(torch.equal(img, main_planar) for img in res.images),
+              f"stream {plans_in}: an image differs from the main path's RGB")
+        del res
+    emit("stream_pinning", layout="packed16", prep_workers=workers, wall_s=pin_walls,
+         wall_median_s={k: statistics.median(v) for k, v in pin_walls.items()},
+         mp_per_s={k: smp / statistics.median(v) for k, v in pin_walls.items()})
+
+    # The host-prep stage alone on one thread (parse, pinned plan), and the
+    # device-only rate: plans built and on the card before the clock.
+    chunks = [list(range(c * MAIN_BATCH, (c + 1) * MAIN_BATCH)) for c in range(STREAM_CHUNKS)]
+    t0 = time.perf_counter()
+    units = [stream_mod._prep(sdatas, m, True) for m in chunks]
+    t_prep = time.perf_counter() - t0
+    dev_plans = [(u.plan.to(dev), u.jpegs) for u in units]
+    # The same stage split: parse, then the plan into pageable and into
+    # pinned memory (one thread, 4 chunks).
+    t0 = time.perf_counter()
+    parsed = [[parse(sdatas[i]) for i in m] for m in chunks]
+    t_parse4 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plans = [wf.build_block_plan(js) for js in parsed]
+    t_plan4 = time.perf_counter() - t0
+    del plans
+    t0 = time.perf_counter()
+    plans = [wf.build_block_plan(js, pin_memory=True) for js in parsed]
+    t_plan_pinned4 = time.perf_counter() - t0
+    del units, parsed, plans
+    device_only = {}
+    for layout in ("packed16", "nhwc"):
+        runs = []
+        for i in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = [wf.decode_plan_to_rgb(pl, js, scfg, dev, packed=layout == "packed16") for pl, js in dev_plans]
+            torch.cuda.synchronize()
+            if i:
+                runs.append(time.perf_counter() - t0)
+            check(all(lay == layout and not err.any() for _rgb, lay, err in outs), f"device-only {layout}")
+            del outs
+        device_only[layout] = runs
+    del dev_plans
+    emit("stream_rates", host_prep_s_1_thread=t_prep, host_prep_mp_per_s_1_thread=smp / t_prep,
+         split_1_thread_s=dict(parse=t_parse4, plan=t_plan4, plan_pinned=t_plan_pinned4),
+         device_only_s=device_only,
+         device_only_mp_per_s={k: smp / statistics.median(v) for k, v in device_only.items()},
+         cpu_count=os.cpu_count(), megapixels=smp)
+
+    # The 4:2:2 planar kernel on its own packed16 stream chunk.
+    d422 = datas["422"]
+    build.LAUNCHES.clear()
+    chunk = next(iter(tpujpeg_torch.decode_stream([d422] * MAIN_BATCH, scfg, chunk_size=MAIN_BATCH,
+                                                  layout="packed16", device=dev)))
+    torch.cuda.synchronize()
+    got = {k: build.LAUNCHES.get(k, 0) for k in KERNELS}
+    check({k: n for k, n in got.items() if n} == {"wavefront_pixels": 1, "upsample_color_h2v1_planar": 1},
+          f"stream 4:2:2 packed16: launches {got}")
+    check(chunk.layout == "packed16" and not chunk.failures, "stream 4:2:2: not packed16")
+    for img in (chunk.images[0], chunk.images[-1]):
+        check(sha(planar_bytes(torch, img)) == manifest["fixtures"]["422"]["pil_sha256"], "stream 4:2:2 != PIL")
+    launches["upsample_color_h2v1_planar"] = got["upsample_color_h2v1_planar"]
+    emit("stream", fixture="422", layout="packed16", images=MAIN_BATCH, launches=got)
+    del chunk
+
+    # 8. batch: every fixture, a zeroed payload and bytes that are no JPEG.
+    names = list(manifest["fixtures"])
+    bdatas = [datas[n] for n in names] + [zero_payload(datas["420_odd"]), b"not a jpeg"]
+    fill0 = next(f["error"] for f in manifest["faults"] if f["fill"] == 0)
+    want_err = {len(names): fill0, len(names) + 1: "JpegSyntaxError"}
+    # The rung each fixture must take on the device ladder: its path's
+    # kernels, kernel 2 per scan for the multi-scan file, host entropy only
+    # for the two marker-free streams (baseline and progressive).
+    ladder = {n: BATCH_RUNG.get(n, {"fused": "wavefront-fused", "progressive": "wavefront-prog"}.get(
+        manifest["fixtures"][n]["path"])) for n in names}
+    for fn, want_engines, want_kernels in (
+            (tpujpeg_torch.decode_batch_on_device, ladder,
+             {"wavefront_pixels", "wavefront_coeff", "dequant_idct_islow", "prog_dc_first", "prog_ac_first",
+              "prog_ac_refine", "upsample_color_h2v2", "upsample_color_h2v1", "color_444"}),
+            (tpujpeg_torch.decode_batch, {n: "native" for n in names},
+             {"dequant_idct_islow", "upsample_color_h2v2", "upsample_color_h2v1", "color_444"})):
+        build.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(bdatas, config, device=dev)
+        seconds = time.perf_counter() - t0
+        got_err = {i: type(e).__name__ for i, e in res.errors.items()}
+        check(got_err == want_err, f"{fn.__name__}: failures {got_err}, want {want_err}")
+        for i, n in enumerate(names):
+            check(hashlib.sha256(res.images[i].tobytes()).hexdigest() == manifest["fixtures"][n]["pil_sha256"],
+                  f"{fn.__name__}: {n} != PIL")
+        engines = {n: res.stats[i].entropy_engine for i, n in enumerate(names)}
+        check(engines == want_engines, f"{fn.__name__}: entropy engines {engines}, want {want_engines}")
+        check({res.stats[i].transform_engine for i in range(len(names))} == {"cuda"},
+              f"{fn.__name__}: transform engines")
+        ran = {k for k, n in build.LAUNCHES.items() if n}
+        check(ran == want_kernels, f"{fn.__name__}: kernels launched {sorted(ran)}, want {sorted(want_kernels)}")
+        emit("batch", entry=fn.__name__, images=len(bdatas), seconds=seconds, failures=got_err,
+             entropy_engines=engines, launches={k: n for k, n in build.LAUNCHES.items() if n})
+    del res
+
+    # 9. Each kernel against its plain version on the main path's inputs.
     results = {}
     geoms = [wf.ImageGeom.of(j) for j in jpegs]
     layout = wf.PlaneLayout.of(geoms[0])
@@ -590,8 +863,53 @@ def main() -> int:
                         (out_k.numel() // 3) * OPS_COLOR_PIXEL[kname]),
         )
         check(results[kname]["max_abs_err"] == 0, f"{kname}: kernel != plain on the main path")
+        if kname in planar_fns:
+            pname, pkern, pplain = planar_fns[kname]
+            out_pk = pkern(*ins)
+            torch.cuda.synchronize()
+            err = max_abs(torch, out_pk, pplain(*ins))
+            check(err == 0 and torch.equal(planar_bytes(torch, out_pk), out_k),
+                  f"{pname}: kernel != plain or != {kname}'s bytes on the main path")
+            results[pname] = dict(
+                max_abs_err=max(err, planar_err[pname]),
+                ms=cuda_ms(torch, lambda: pkern(*ins), 10),
+                plain_ms=cuda_ms(torch, lambda: pplain(*ins), 3),
+                shape=f"{tuple(ins[0].shape)} luma, {tuple(ins[1].shape)} chroma -> uint16 {tuple(out_pk.shape)}",
+                bound=results[kname]["bound"],
+            )
+            del out_pk
         del out_k, out_p
-    del planes_k, color_inputs
+    del color_inputs
+
+    # tools/color_probe.py's and color_profile.py's A/B: kernel B and the
+    # 4:2:0 planar kernel on random 32 x 2048^2 planes.
+    g = torch.Generator(device=dev).manual_seed(11)
+    ab_ins = [torch.randint(0, 256, shape, generator=g, dtype=torch.uint8, device=dev)
+              for shape in ((MAIN_BATCH, 2048, 2048), (MAIN_BATCH, 1024, 1024), (MAIN_BATCH, 1024, 1024))]
+    ab_bound = bound(sum(t.numel() for t in ab_ins) + MAIN_BATCH * 2048 * 2048 * 3,
+                     MAIN_BATCH * 2048 * 2048 * OPS_COLOR_PIXEL["upsample_color_h2v2"])
+    ab_err = planar_vs_plain("upsample_color_h2v2", ab_ins, sc.upsample_color_h2v2(*ab_ins))
+    emit("kernel_timing_ab", planes="random 32 x 2048^2 luma, 32 x 1024^2 chroma", max_abs_err=ab_err,
+         upsample_color_h2v2_ms=cuda_ms(torch, lambda: sc.upsample_color_h2v2(*ab_ins), 10),
+         upsample_color_h2v2_planar_ms=cuda_ms(torch, lambda: sc.upsample_color_h2v2_packed(*ab_ins), 10),
+         bound_ms=ab_bound[0], bound_by=ab_bound[1])
+    del ab_ins
+
+    # tools/tail_variants.py's tail split on the main path's plan: kernel A
+    # alone, A + B, and A + the planar kernel (bounds: the sums of theirs).
+    scratch = layout.alloc(len(geoms), dev)
+    tail_ins = cropped(frame, scratch)
+
+    def kernel_a():
+        wf._launch_wavefront(pd, layout, scratch, err_s)
+
+    a_bound, c_bound = results["wavefront_pixels"]["bound"][0], results["upsample_color_h2v2"]["bound"][0]
+    emit("tail_split", fixture="420_2048", images=MAIN_BATCH,
+         a_ms=cuda_ms(torch, kernel_a, 5),
+         a_b_ms=cuda_ms(torch, lambda: (kernel_a(), sc.upsample_color_h2v2(*tail_ins)), 5),
+         a_planar_ms=cuda_ms(torch, lambda: (kernel_a(), sc.upsample_color_h2v2_packed(*tail_ins)), 5),
+         a_bound_ms=a_bound, a_color_bound_ms=a_bound + c_bound)
+    del scratch, tail_ins, planes_k
 
     # Kernels 7-9 at batch 32, scan by scan: the plain version runs once
     # on a copy of the scan's input state, each timed launch from that
@@ -668,7 +986,7 @@ def main() -> int:
         r["bound_ms"], r["bound_by"] = r.pop("bound")
         emit("kernel_timing", kernel=k, **r)
 
-    # 7. faults
+    # 10. faults
     for fault in manifest["faults"]:
         data = datas[fault["fixture"]]
         js = [parse(data) for _ in range(fault["batch"])]
@@ -683,7 +1001,7 @@ def main() -> int:
                       f"fault {fault}: member {i} not bit-exact")
         emit("faults", fault=fault, failures=got)
 
-    # 8. decode(): fused fixtures, then the staged ones.
+    # 11. decode(): fused fixtures, then the staged ones.
     wavefront = tpujpeg_torch.DecodeConfig(entropy_engine="wavefront")
     for name, cfg, engines in (("420_odd", config, ("wavefront-fused", "cuda")),
                                ("gray", config, ("wavefront-fused", "cuda")),
@@ -724,7 +1042,7 @@ def main() -> int:
              bound_ms=results[k]["bound_ms"], bound_by=results[k]["bound_by"], library_ms=None)
         for k in KERNELS
     ]}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
 

@@ -1,4 +1,5 @@
-"""Kernels A-D, 2, 6 and 7-9 against their plain torch versions on a CUDA card.
+"""Kernels A-D, 2, 6, 7-9 and the planar color kernels against their plain
+torch versions on a CUDA card, and the stream and batch entries there.
 
 Every test here needs a card: each skips, with a reason, where
 torch.cuda.is_available() is false. This file imports neither JAX nor PIL,
@@ -348,9 +349,9 @@ def test_prog_decode_on_card_matches_pil_hashes(cuda):
 
     for name in ("prog_444", "prog_gray"):
         want = MANIFEST["fixtures"][name]["pil_sha256"]
-        rgb, failures = tpujpeg_torch.decode_all_scans_to_rgb_batch(
+        rgb, layout, failures = tpujpeg_torch.decode_all_scans_to_rgb_batch(
             [tpujpeg_torch.bitstream.parse(_read(name)) for _ in range(3)], device=cuda)
-        assert not failures and rgb.device.type == "cuda"
+        assert not failures and layout == "nhwc" and rgb.device.type == "cuda"
         for i in range(3):
             assert hashlib.sha256(rgb[i].cpu().numpy().tobytes()).hexdigest() == want
         before = build.LAUNCHES["prog_ac_refine"]
@@ -359,3 +360,145 @@ def test_prog_decode_on_card_matches_pil_hashes(cuda):
         assert stats.entropy_engine == "wavefront" and stats.transform_engine == "cuda"
         assert build.LAUNCHES["prog_ac_refine"] > before
         assert hashlib.sha256(out.tobytes()).hexdigest() == want
+
+
+def zero_payload(data: bytes) -> bytes:
+    """The stream with every entropy-coded byte of its first scan zeroed
+    and its restart markers kept: its segments fail to decode."""
+    d = bytearray(data)
+    sos = d.index(b"\xff\xda")
+    i = sos + 2 + int.from_bytes(d[sos + 2 : sos + 4], "big")
+    while i < len(d) - 2:
+        if d[i] == 0xFF and 0xD0 <= d[i + 1] <= 0xD7:
+            i += 2
+            continue
+        d[i] = 0
+        i += 1
+    return bytes(d)
+
+
+PLANAR = [
+    ("upsample_color_h2v2_planar", sc.upsample_color_h2v2_packed, sc.upsample_color_h2v2_packed_plain,
+     lambda h, w: ((h + 1) // 2, w // 2)),
+    ("upsample_color_h2v1_planar", sc.upsample_color_h2v1_packed, sc.upsample_color_h2v1_packed_plain,
+     lambda h, w: (h, w // 2)),
+]
+
+
+@pytest.mark.parametrize("k", range(2), ids=["h2v2", "h2v1"])
+@pytest.mark.parametrize("h,w,pad", [(1, 2, 0), (37, 50, 5), (64, 48, 0), (257, 130, 3), (9, 1024, 2)])
+def test_planar_kernels_match_plain(cuda, k, h, w, pad):
+    """Random planes, cropped from wider ones (pad 5 and 3 make the luma
+    row stride odd, so the kernel takes its byte loads), odd heights
+    included; uint16 [N, 3, H, W/2] equal to the plain version and to the
+    NHWC kernel's bytes."""
+    name, kern, plain, chroma = PLANAR[k]
+    g = torch.Generator().manual_seed(h * 1000 + w + pad)
+    hc, wc = chroma(h, w)
+    y = torch.randint(0, 256, (3, h + 3, w + pad), generator=g, dtype=torch.uint8)[:, :h, :w]
+    cb, cr = (torch.randint(0, 256, (3, hc + 2, wc + pad), generator=g, dtype=torch.uint8)[:, :hc, :wc]
+              for _ in range(2))
+    ins = [t.to(cuda) for t in (y, cb, cr)]
+    before = build.LAUNCHES[name]
+    got = kern(*ins)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[name] == before + 1
+    assert got.dtype == torch.uint16 and got.shape == (3, 3, h, w // 2)
+    assert torch.equal(got, plain(*ins))
+    assert torch.equal(got.cpu(), plain(y, cb, cr))
+    nhwc = (sc.upsample_color_h2v2 if k == 0 else sc.upsample_color_h2v1)(*ins)
+    assert torch.equal(got.view(torch.uint8).view(3, 3, h, w), nhwc.permute(0, 3, 1, 2))
+
+
+@pytest.mark.parametrize("k", range(2), ids=["h2v2", "h2v1"])
+def test_planar_kernels_refuse_odd_width(cuda, k):
+    name, kern, _plain, chroma = PLANAR[k]
+    hc, wc = chroma(9, 17)
+    y = torch.zeros((1, 9, 17), dtype=torch.uint8, device=cuda)
+    c = torch.zeros((1, hc, wc + 1), dtype=torch.uint8, device=cuda)
+    before = build.LAUNCHES[name]
+    with pytest.raises(ValueError, match="even width"):
+        kern(y, c, c)
+    assert build.LAUNCHES[name] == before
+
+
+@pytest.mark.parametrize("layout", ["nhwc", "packed16"])
+def test_stream_on_card_equals_batch_on_device(cuda, layout):
+    """decode_stream over the 4:2:0, 4:2:2 and odd-width fixtures (a chunk
+    each) equals decode_batch_on_device; packed16 applies where the width
+    is even, and its bytes are the NHWC image's planar raster."""
+    names = ["420_odd", "422", "420_2048"]
+    datas = [_read(n) for n in names]
+    cfg = tpujpeg_torch.DecodeConfig(to_numpy=False)
+    ref = tpujpeg_torch.decode_batch_on_device(datas, cfg, device=cuda)
+    assert not ref.errors
+    before = dict(build.LAUNCHES)
+    chunks = list(tpujpeg_torch.decode_stream(datas, cfg, chunk_size=1, layout=layout, device=cuda))
+    for name, _kern, _plain, _chroma in PLANAR:
+        assert build.LAUNCHES[name] - before.get(name, 0) == (layout == "packed16")
+    for ch in chunks:
+        (i,) = ch.members
+        img = ch.images[0]
+        assert not ch.failures and img.device.type == "cuda"
+        odd = MANIFEST["fixtures"][names[i]]["shape"][1] % 2
+        assert ch.layout == ("packed16" if layout == "packed16" and not odd else "nhwc")
+        if ch.layout == "packed16":
+            h, w = img.shape[1], img.shape[2] * 2
+            img = img.view(torch.uint8).view(3, h, w).permute(1, 2, 0)
+        assert torch.equal(img, ref.images[i])
+
+
+def test_batch_entries_on_card_match_pil_hashes(cuda):
+    """decode_batch_on_device and decode_batch on every fixture but the
+    2048^2 ones, a corrupted member and bytes that are no JPEG."""
+    import hashlib
+
+    names = [n for n in MANIFEST["fixtures"] if "2048" not in n]
+    datas = [_read(n) for n in names] + [zero_payload(_read("420_odd")), b"not a jpeg"]
+    for fn in (tpujpeg_torch.decode_batch_on_device, tpujpeg_torch.decode_batch):
+        res = fn(datas, device=cuda)
+        assert {i: type(e).__name__ for i, e in res.errors.items()} == {
+            len(names): "JpegHuffmanError", len(names) + 1: "JpegSyntaxError"}
+        for i, n in enumerate(names):
+            assert hashlib.sha256(res.images[i].tobytes()).hexdigest() == MANIFEST["fixtures"][n]["pil_sha256"]
+            assert res.stats[i].transform_engine == "cuda"
+        engines = {n: res.stats[i].entropy_engine for i, n in enumerate(names)}
+        if fn is tpujpeg_torch.decode_batch:
+            assert set(engines.values()) == {"native"}
+        else:
+            assert engines == {n: {"progressive": "wavefront-prog", "fused": "wavefront-fused"}.get(
+                MANIFEST["fixtures"][n]["path"], "wavefront-coeff") for n in names}
+
+
+def test_kernel_failure_raises_through_batch_and_stream(cuda, monkeypatch):
+    """A kernel launch that fails (build.raise_on_error raising, as on a
+    CUDA error) propagates out of every rung of the batch ladder and the
+    stream: no image's work moves to host entropy and no slot reports it
+    as a corrupt JPEG."""
+    def fail(rc, name):
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error 700")
+
+    monkeypatch.setattr(build, "raise_on_error", fail)
+    for names in (["420_odd"], ["prog_444"], ["multiscan"], ["420_odd", "prog_444", "multiscan"]):
+        datas = [_read(n) for n in names]
+        with pytest.raises(RuntimeError, match="kernel launch failed"):
+            tpujpeg_torch.decode_batch_on_device(datas, device=cuda)
+        with pytest.raises(RuntimeError, match="kernel launch failed"):
+            list(tpujpeg_torch.decode_stream(datas, device=cuda))
+
+
+def test_pinned_plan_equals_pageable_plan(cuda):
+    """build_block_plan(pin_memory=True) packs the rows straight into
+    page-locked memory; every tensor is pinned and equal to the pageable
+    plan's, and the kernel decodes both alike."""
+    jpegs = [tpujpeg_torch.bitstream.parse(_read("420_odd"))] * 2
+    pinned, plain = wf.build_block_plan(jpegs, pin_memory=True), wf.build_block_plan(jpegs)
+    geoms = [wf.ImageGeom.of(j) for j in jpegs]
+    for f in ("bits", "seg_bits", "lane_m", "lane_qset", "lane_meta", "tables", "huffval", "qsets"):
+        a, b = getattr(pinned, f), getattr(plain, f)
+        assert a.is_pinned() and not b.is_pinned() and torch.equal(a, b), f
+    got = wf.decode_lanes_to_planes(pinned.to(cuda, non_blocking=True), geoms, cuda)
+    want = wf.decode_lanes_to_planes(plain, geoms, cuda)
+    torch.cuda.synchronize()
+    for x, y in zip(got[0] + [got[1]], want[0] + [want[1]]):
+        assert torch.equal(x, y)

@@ -104,8 +104,9 @@ def test_native_library_builds_into_the_port():
 # Runs in a fresh interpreter: records every file the process opens,
 # loads, renames or builds under tpujpeg/ (an audit hook), then imports
 # the port, decodes on the staged path (native entropy, kernel 6's and
-# kernel B's plain versions) and the fused path (the native row packer),
-# and reports what was loaded.
+# kernel B's plain versions), the fused path (the native row packer) and
+# through the parallel/ modules (the stream, whose fallback runs the batch
+# ladder), and reports what was loaded.
 _PROBE = r"""
 import json, os, sys
 root, ref, path = sys.argv[1:4]
@@ -130,6 +131,9 @@ data = open(path, "rb").read()
 img, stats = tpujpeg_torch.decode(data, device="cpu", return_stats=True)
 rgb, failures = tpujpeg_torch.decode_batch_to_rgb(
     [tpujpeg_torch.bitstream.parse(open(path + ".rst", "rb").read())], device="cpu")
+from tpujpeg_torch.parallel import batch, stream
+res = stream.decode_batch_pipelined([data, open(path + ".rst", "rb").read()], chunk_size=1, device="cpu")
+failures = {**failures, **res.errors}
 names = ("jax", "jaxlib", "tpujpeg")
 loaded = sorted(m for m in sys.modules if m in names or m.startswith(tuple(n + "." for n in names))
                 or m.endswith("._shared") or "._shared." in m)

@@ -114,8 +114,10 @@ def test_group_with_zeroed_ac_first_payload_matches_reference():
     assert set(failures) <= {1}
     jpegs = [bitstream.parse(GROUP) for _ in range(3)]
     _zero_ac_first(jpegs)
-    rgb, fail = prog.decode_all_scans_to_rgb_batch(jpegs, device="cpu")
-    assert fail.keys() == failures.keys()
+    rgb, layout, fail = prog.decode_all_scans_to_rgb_batch(jpegs, device="cpu")
+    assert layout == "nhwc" and fail.keys() == failures.keys()
+    _rgb, _layout, (errs, plans) = prog.decode_all_scans_to_rgb_batch(jpegs, defer_errors=True, device="cpu")
+    assert _names(prog.resolve_scan_errors(errs, plans)) == _names(failures)
     for i in (0, 2):
         np.testing.assert_array_equal(rgb[i].numpy(), pil_decode(GROUP))
 
@@ -169,16 +171,17 @@ def test_decode_all_scans_to_rgb_batch_matches_pil_with_mixed_quantizers():
     variant = _bump_dqt(base)
     jpegs = [bitstream.parse(d) for d in (base, variant)]
     assert prog.scan_group_key(jpegs[0]) == prog.scan_group_key(jpegs[1])
-    rgb, failures = tpujpeg_torch.decode_all_scans_to_rgb_batch(jpegs, device="cpu")
-    assert not failures and rgb.shape == (2, 80, 96, 3)
+    rgb, layout, failures = tpujpeg_torch.decode_all_scans_to_rgb_batch(jpegs, device="cpu")
+    assert not failures and layout == "nhwc" and rgb.shape == (2, 80, 96, 3)
     for i, d in enumerate((base, variant)):
         np.testing.assert_array_equal(rgb[i].numpy(), pil_decode(d))
 
 
 def test_gray_group_to_rgb_matches_pil():
     data = make_jpeg(96, 64, seed=13, mode="L", progressive=True, restart_blocks=8)
-    rgb, failures = tpujpeg_torch.decode_all_scans_to_rgb_batch([bitstream.parse(data)] * 2, device="cpu")
-    assert not failures
+    rgb, layout, failures = tpujpeg_torch.decode_all_scans_to_rgb_batch([bitstream.parse(data)] * 2,
+                                                                         packed=True, device="cpu")
+    assert not failures and layout == "nhwc"
     for i in range(2):
         np.testing.assert_array_equal(rgb[i].numpy(), pil_decode(data))
 

@@ -11,20 +11,34 @@ entropy oracle (``huffman``) and the native C++ entropy library
 Public API:
     decode(data, config, device)                  -> one image
     decode_file(path, config, device=...)         -> one image
-    decode_batch_to_rgb(jpegs, config, device)    -> (uint8 [N, H, W, 3], failures)
+    decode_batch_to_rgb(jpegs, config, defer_errors, device)
+                                                  -> (uint8 [N, H, W, 3], failures)
     decode_batch_to_coeffs(jpegs, config, strict, device)
                                                   -> (per component int32
                                                       [N, blocks, 64], failures)
     decode_batch_to_device(jpegs, config, strict, device)
                                                   -> (per image, per component
                                                       int32 [blocks, 64], failures)
-    decode_all_scans_to_rgb_batch(jpegs, config, device)
-                                                  -> (uint8 [N, H, W, 3], failures)
+    decode_all_scans_to_rgb_batch(jpegs, config, packed, defer_errors, device)
+                                                  -> (uint8 [N, H, W, 3], layout, failures)
                                                      for a progressive group
     decode_all_scans_batch(jpegs, device)         -> (per image, per component
                                                       AC int32 [blocks, 64] and
                                                       DC int32 [blocks], failures)
+    decode_batch_on_device(datas, config, device) -> BatchResult: mixed JPEG bytes,
+                                                     bucketed, each image fault-isolated
+    decode_batch(datas, config, device)           -> BatchResult: host entropy, device transform
+    decode_stream(datas, config, chunk_size, depth, prep_workers, layout, device)
+                                                  -> StreamChunk per chunk, in order: host prep
+                                                     on threads overlapped with the device
+    decode_batch_pipelined(datas, config, chunk_size, depth, prep_workers, layout, device)
+                                                  -> BatchResult through the stream
     DecodeConfig, DecodeStats, JpegError and its subclasses
+
+``layout="packed16"`` (and ``packed=True``) asks for the reference's
+packed16 form where it applies (4:2:0 and 4:2:2 YCbCr, even width):
+planar uint16 [3, H, W/2] per image whose little-endian bytes are the
+planar uint8 raster.
 
 A progressive group (images with one ``wavefront_prog.scan_group_key``:
 same frame, scan script and Huffman tables) decodes through the
@@ -48,6 +62,8 @@ from .errors import (
 )
 from .kernels.wavefront import decode_batch_to_coeffs, decode_batch_to_device, decode_batch_to_rgb
 from .kernels.wavefront_prog import decode_all_scans_batch, decode_all_scans_to_rgb_batch
+from .parallel.batch import BatchResult, decode_batch, decode_batch_on_device
+from .parallel.stream import StreamChunk, decode_batch_pipelined, decode_stream
 from .stats import DecodeStats
 
 __all__ = [
@@ -58,6 +74,12 @@ __all__ = [
     "decode_batch_to_device",
     "decode_all_scans_to_rgb_batch",
     "decode_all_scans_batch",
+    "decode_batch",
+    "decode_batch_on_device",
+    "decode_stream",
+    "decode_batch_pipelined",
+    "BatchResult",
+    "StreamChunk",
     "bitstream",
     "DecodeConfig",
     "DEFAULT_CONFIG",

@@ -97,7 +97,7 @@ def decode(data: bytes, config: DecodeConfig = DEFAULT_CONFIG, device="cuda",
     ):
         t0 = time.perf_counter()
         try:
-            rgb, failures = wavefront.decode_batch_to_rgb([jpeg], config, device)
+            rgb, failures = wavefront.decode_batch_to_rgb([jpeg], config, device=device)
         except JpegUnsupportedError:
             stats.entropy_fallbacks += 1
         else:

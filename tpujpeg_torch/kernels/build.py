@@ -95,6 +95,8 @@ _SIGNATURES = {
     ],
 }
 _SIGNATURES["tj_prog_ac_refine"] = _SIGNATURES["tj_prog_ac_first"]
+_SIGNATURES["tj_upsample_color_h2v2_planar"] = _SIGNATURES["tj_upsample_color_h2v2"]
+_SIGNATURES["tj_upsample_color_h2v1_planar"] = _SIGNATURES["tj_upsample_color_h2v1"]
 
 
 def _sources() -> Sequence[str]:

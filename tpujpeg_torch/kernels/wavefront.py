@@ -125,15 +125,21 @@ class LanePlan:
     def blocks_per_mcu(self) -> int:
         return len(self.blk_tables)
 
-    def to(self, device) -> "LanePlan":
+    def _map(self, fn) -> "LanePlan":
         return dataclasses.replace(
             self,
             **{
-                f.name: getattr(self, f.name).to(device)
+                f.name: fn(getattr(self, f.name))
                 for f in dataclasses.fields(self)
                 if isinstance(getattr(self, f.name), torch.Tensor)
             },
         )
+
+    def to(self, device, non_blocking: bool = False) -> "LanePlan":
+        """The plan's tensors on `device`. With `non_blocking`, copies from
+        pinned host memory return before they land: the caller keeps this
+        plan alive until the stream has passed them."""
+        return self._map(lambda t: t.to(device, non_blocking=non_blocking))
 
 
 def _table_tensors(blk_tables) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -158,7 +164,76 @@ def _segment_mcus(frame, scan) -> int:
     return c0.width_blocks * c0.height_blocks
 
 
-def build_block_plan(jpegs: Sequence) -> LanePlan:
+def _image_tables(jpeg, table) -> Tuple:
+    """One image's scan and its per-block (component, dc table, ac table)
+    list, with `table` mapping a table spec; raises where the planner
+    refuses the image's scan structure."""
+    frame = jpeg.frame
+    if len(jpeg.scans) != 1:
+        raise JpegUnsupportedError("one scan only: multi-scan files take decode_multiscan_to_device")
+    scan = jpeg.scans[0]
+    if not scan.interleaved and frame.n_components != 1:
+        raise JpegUnsupportedError(
+            "non-interleaved multi-component scan in a one-scan file"
+        )
+    tables: List[Tuple] = []
+    pairs = (
+        list(zip(scan.comp_indices, scan.dc_ids, scan.ac_ids))
+        if scan.interleaved
+        else [(scan.comp_indices[0], scan.dc_ids[0], scan.ac_ids[0])]
+    )
+    for ci, dc_id, ac_id in pairs:
+        c = frame.components[ci]
+        dk, ak = (0, dc_id), (1, ac_id)
+        if dk not in scan.huff or ak not in scan.huff:
+            raise JpegSyntaxError("missing Huffman table")
+        n_blk = c.h * c.v if scan.interleaved else 1
+        tables += [(ci, table(scan.huff[dk]), table(scan.huff[ak]))] * n_blk
+    return scan, tuple(tables)
+
+
+def _image_segments(frame, scan) -> Tuple[int, int, int, np.ndarray]:
+    """(MCUs, restart interval in MCUs, segments, stuffed bytes per
+    segment) of a one-scan image; raises where restart segments are
+    missing."""
+    total_mcus = _segment_mcus(frame, scan)
+    ri = scan.restart_interval or total_mcus
+    n_seg = -(-total_mcus // ri)
+    if len(scan.rst_offsets) + 1 < n_seg:
+        raise JpegTruncatedError("missing restart segments")
+    if scan.destuffed is not None and scan.dseg_starts is not None and len(
+        scan.dseg_starts
+    ) >= n_seg + 1:
+        ds = scan.dseg_starts
+        stuffed = ds[1 : n_seg + 1] - ds[:n_seg]
+    else:
+        # Stuffed lengths bound the destuffed row size.
+        ro = np.asarray(scan.rst_offsets[: n_seg - 1], dtype=np.int64)
+        stuffed = np.concatenate([ro, [len(scan.data)]]) - np.concatenate([[0], ro + 2])
+    return total_mcus, ri, n_seg, stuffed
+
+
+def _spec_key(spec) -> bytes:
+    return spec.counts.tobytes() + spec.values.tobytes()
+
+
+def plan_key(jpeg) -> Tuple:
+    """The key under which a parsed baseline JPEG shares a lane plan with
+    others of its geometry: its per-block Huffman tables. Raises
+    JpegError where the planner refuses the image even alone
+    (progressive, several scans, a non-interleaved multi-component scan,
+    a missing table or restart segments, a segment over MAX_WORDS
+    words): such an image needs the per-image rungs."""
+    if jpeg.frame.progressive:
+        raise JpegUnsupportedError("progressive frames take their own planner")
+    scan, tables = _image_tables(jpeg, _spec_key)
+    *_counts, stuffed = _image_segments(jpeg.frame, scan)
+    if int(stuffed.max()) // 4 + 2 > MAX_WORDS:
+        raise JpegUnsupportedError(f"segment too long: {_LATER_NORST}")
+    return tables
+
+
+def build_block_plan(jpegs: Sequence, pin_memory: bool = False) -> LanePlan:
     """Flat lane plan for a uniform batch of parsed baseline JPEGs.
 
     Raises JpegUnsupportedError on exactly the batches the reference's
@@ -167,7 +242,9 @@ def build_block_plan(jpegs: Sequence) -> LanePlan:
     scan, mixed Huffman tables and a segment over MAX_WORDS words. More
     than MAX_QSETS quantizer sets is the fused entry's limit
     (``decode_batch_to_rgb``), as in the reference; the coefficient
-    kernel takes no quantizers."""
+    kernel takes no quantizers. With `pin_memory` the plan's tensors are
+    in page-locked host memory (the rows packed straight into it), so
+    that a non-blocking copy to the card is asynchronous."""
     if not jpegs:
         raise JpegUnsupportedError("empty batch")
     f0 = jpegs[0].frame
@@ -184,7 +261,7 @@ def build_block_plan(jpegs: Sequence) -> LanePlan:
     img_qset: List[int] = []
 
     def table(spec) -> CanonTable:
-        key = spec.counts.tobytes() + spec.values.tobytes()
+        key = _spec_key(spec)
         if key not in canon:
             canon[key] = CanonTable.from_spec(spec)
         return canon[key]
@@ -198,28 +275,7 @@ def build_block_plan(jpegs: Sequence) -> LanePlan:
         key = (frame.height, frame.width, tuple((c.h, c.v) for c in frame.components))
         if key != key0:
             raise JpegUnsupportedError("mixed geometry in one batch: batch buckets arrive later")
-        if len(jpeg.scans) != 1:
-            raise JpegUnsupportedError("one scan only: multi-scan files take decode_multiscan_to_device")
-        scan = jpeg.scans[0]
-        if not scan.interleaved and frame.n_components != 1:
-            raise JpegUnsupportedError(
-                "non-interleaved multi-component scan in a one-scan file"
-            )
-
-        tables: List[Tuple[int, CanonTable, CanonTable]] = []
-        pairs = (
-            list(zip(scan.comp_indices, scan.dc_ids, scan.ac_ids))
-            if scan.interleaved
-            else [(scan.comp_indices[0], scan.dc_ids[0], scan.ac_ids[0])]
-        )
-        for ci, dc_id, ac_id in pairs:
-            c = frame.components[ci]
-            dk, ak = (0, dc_id), (1, ac_id)
-            if dk not in scan.huff or ak not in scan.huff:
-                raise JpegSyntaxError("missing Huffman table")
-            n_blk = c.h * c.v if scan.interleaved else 1
-            tables += [(ci, table(scan.huff[dk]), table(scan.huff[ak]))] * n_blk
-        tables_t = tuple(tables)
+        scan, tables_t = _image_tables(jpeg, table)
         if blk_tables is None:
             blk_tables = tables_t
         elif blk_tables != tables_t:
@@ -227,30 +283,17 @@ def build_block_plan(jpegs: Sequence) -> LanePlan:
                 "mixed Huffman tables in one batch: decode the images in separate batches"
             )
 
-        qkey = tuple(jpeg.qtables[frame.components[ci].tq].tobytes() for ci, _d, _a in tables)
+        qkey = tuple(jpeg.qtables[frame.components[ci].tq].tobytes() for ci, _d, _a in tables_t)
         idx = qset_index.get(qkey)
         if idx is None:
             idx = len(qset_index)
             qset_index[qkey] = idx
             qset_values.append(
-                np.stack([jpeg.qtables[frame.components[ci].tq] for ci, _d, _a in tables])
+                np.stack([jpeg.qtables[frame.components[ci].tq] for ci, _d, _a in tables_t])
             )
         img_qset.append(idx)
 
-        total_mcus = _segment_mcus(frame, scan)
-        ri = scan.restart_interval or total_mcus
-        n_seg = -(-total_mcus // ri)
-        if len(scan.rst_offsets) + 1 < n_seg:
-            raise JpegTruncatedError("missing restart segments")
-        if scan.destuffed is not None and scan.dseg_starts is not None and len(
-            scan.dseg_starts
-        ) >= n_seg + 1:
-            ds = scan.dseg_starts
-            stuffed = ds[1 : n_seg + 1] - ds[:n_seg]
-        else:
-            # Stuffed lengths bound the destuffed row size.
-            ro = np.asarray(scan.rst_offsets[: n_seg - 1], dtype=np.int64)
-            stuffed = np.concatenate([ro, [len(scan.data)]]) - np.concatenate([[0], ro + 2])
+        total_mcus, ri, n_seg, stuffed = _image_segments(frame, scan)
         seg_rows.append((scan, n_seg))
         fm = np.arange(n_seg, dtype=np.int64) * ri
         nm = np.minimum(ri, total_mcus - fm).astype(np.int32)
@@ -269,7 +312,8 @@ def build_block_plan(jpegs: Sequence) -> LanePlan:
     meta = np.concatenate(lane_meta, axis=0)
     L = len(meta)
 
-    bits = np.empty((L, W), dtype=np.int32)
+    bits_t = torch.empty((L, W), dtype=torch.int32, pin_memory=pin_memory)
+    bits = bits_t.numpy()
     seg_bits = np.zeros(L, dtype=np.int32)
     lane0 = 0
     for scan, n_seg in seg_rows:
@@ -285,8 +329,8 @@ def build_block_plan(jpegs: Sequence) -> LanePlan:
         lane0 += n_seg
 
     tables_t, huffval_t = _table_tensors(blk_tables)
-    return LanePlan(
-        bits=torch.from_numpy(bits),
+    plan = LanePlan(
+        bits=bits_t,
         seg_bits=torch.from_numpy(seg_bits),
         lane_m=torch.from_numpy(np.ascontiguousarray(meta[:, 2])),
         lane_qset=torch.from_numpy(np.asarray(img_qset, np.int32)[meta[:, 0]]),
@@ -299,6 +343,10 @@ def build_block_plan(jpegs: Sequence) -> LanePlan:
         n_images=len(jpegs),
         img_qset=tuple(img_qset),
     )
+    if pin_memory:
+        # The small tensors are copied in; the rows already are pinned.
+        plan = plan._map(lambda t: t if t.is_pinned() else t.pin_memory())
+    return plan
 
 
 def plan_from_reference(ref_plan) -> LanePlan:
@@ -652,24 +700,45 @@ def resolve_rgb_errors(err: torch.Tensor, plan: LanePlan) -> Dict[int, Exception
     return failures_from_err(errs, plan.lane_meta.cpu().numpy())
 
 
-def decode_batch_to_rgb(
-    jpegs: Sequence, config: DecodeConfig = DEFAULT_CONFIG, device="cuda"
-) -> Tuple[torch.Tensor, Dict[int, Exception]]:
+def decode_plan_to_rgb(plan: LanePlan, jpegs: Sequence, config: DecodeConfig = DEFAULT_CONFIG,
+                       device="cuda", packed: bool = False):
+    """Kernel A and the color stage for a plan built elsewhere (the
+    stream's prep threads build it; the reference's ``_rgb_chain`` and its
+    call). Copies the plan to `device` without blocking (asynchronous from
+    pinned memory: keep `plan` alive until the stream has passed the
+    launches) and reads nothing back. Returns (rgb, layout, err): uint8
+    [N, H, W, 3] (or [N, H, W] gray) on `device` with layout "nhwc", or,
+    with `packed` where ``pipeline.packed_layout_applies``, planar uint16
+    [N, 3, H, W/2] with layout "packed16"; and the per-lane error bits
+    int32[L] for ``resolve_rgb_errors``."""
+    from . import pipeline
+
+    frame = jpegs[0].frame
+    color = bitstream.color_space(jpegs[0])
+    device = torch.device(device)
+    planes, err = decode_lanes_to_planes(plan.to(device, non_blocking=True),
+                                         [ImageGeom.of(j) for j in jpegs], device)
+    rgb = pipeline.transform_planes_batch(frame, planes, config, color=color, packed=packed)
+    return rgb, pipeline.layout_of(rgb), err
+
+
+def decode_batch_to_rgb(jpegs: Sequence, config: DecodeConfig = DEFAULT_CONFIG,
+                        defer_errors: bool = False, device="cuda"):
     """Fused decode of a uniform batch of parsed baseline JPEGs
     (``tpujpeg_torch.bitstream.parse``) on `device`: kernel A to component
     planes, then upsample + color. Returns ([N, H, W, 3] or [N, H, W]
-    uint8 on `device`, {image index: exception})."""
-    from . import pipeline
-
+    uint8 on `device`, {image index: exception}). With `defer_errors`
+    the second element is instead the (err, plan) pair for
+    ``resolve_rgb_errors``: nothing is read back, so a caller can launch
+    several batches before it waits on any."""
     plan = build_block_plan(jpegs)
     if int(plan.qsets.shape[0]) > MAX_QSETS:
         raise JpegUnsupportedError(
             f"fused pixels mode takes at most {MAX_QSETS} distinct quantizer sets per batch"
         )
-    geoms = [ImageGeom.of(j) for j in jpegs]
-    planes, err = decode_lanes_to_planes(plan, geoms, device)
-    color = bitstream.color_space(jpegs[0])
-    rgb = pipeline.transform_planes_batch(jpegs[0].frame, planes, config, color=color)
+    rgb, _layout, err = decode_plan_to_rgb(plan, jpegs, config, device)
+    if defer_errors:
+        return rgb, (err, plan)
     return rgb, resolve_rgb_errors(err, plan)
 
 

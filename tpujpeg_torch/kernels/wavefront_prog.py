@@ -25,11 +25,11 @@ reference's lane<->grid conversions (``_flat_lanes``, ``_scatter_dc_s``,
 stores pred << Al into the DC columns, kernel 8 adds val << Al into the
 band (the reference adds its block into the state), kernel 9 rewrites the
 band of each block in place. Lanes are a flat [L] axis (no [G, 8, K]
-groups), tables are runtime data (the reference's baked/table-dynamic
-split collapses into one form), and the packed16 output layout is not
-carried over. The planner keeps the reference's limits (the W rule,
-``MAX_WORDS``, the one-segment scan over 2040 bytes) so that both
-decoders accept and reject the same streams.
+groups) and tables are runtime data (the reference's baked/table-dynamic
+split collapses into one form, so its ``dyn`` has no counterpart). The
+planner keeps the reference's limits (the W rule, ``MAX_WORDS``, the
+one-segment scan over 2040 bytes) so that both decoders accept and
+reject the same streams.
 
 The reference takes every scan's tables and geometry from the group's
 first image; here a group whose members' ``scan_group_key`` differ raises
@@ -771,18 +771,23 @@ def decode_all_scans_batch(
 
 
 def decode_all_scans_to_rgb_batch(jpegs: Sequence, config: DecodeConfig = DEFAULT_CONFIG,
-                                  device="cuda"):
+                                  packed: bool = False, defer_errors: bool = False, device="cuda"):
     """Full progressive decode of a group on `device`: every scan (kernels
     7-9 and the DC-refine ORs), then ``pipeline.transform_batch`` with the
     DC columns (kernel 6, then the color stage), with per-image [N, 64]
-    quantizers when the images' differ. Returns (rgb, failures): uint8
-    [N, H, W, 3] (or [N, H, W] gray) on `device`, whose image i is
-    garbage when failures has i."""
+    quantizers when the images' differ. Returns (rgb, layout, failures):
+    uint8 [N, H, W, 3] (or [N, H, W] gray) on `device` with layout "nhwc",
+    or with `packed`, where ``pipeline.packed_layout_applies``, planar
+    uint16 [N, 3, H, W/2] with layout "packed16"; image i is garbage when
+    failures has i. With `defer_errors` the third element is instead the
+    (error bits, kernel plans) pair for ``resolve_scan_errors``: nothing is
+    read back, so a caller can launch several groups before it waits."""
     from . import pipeline
 
     device = torch.device(device)
     steps = plan_scans(jpegs)
     frame = jpegs[0].frame
+    color = bitstream.color_space(jpegs[0])
     acs, dcs, errs, kernel_plans = run_scans(frame, len(jpegs), steps, device)
     qsets = {tuple(j.qtables[c.tq].tobytes() for c in frame.components) for j in jpegs}
     if len(qsets) > 1:
@@ -790,9 +795,11 @@ def decode_all_scans_to_rgb_batch(jpegs: Sequence, config: DecodeConfig = DEFAUL
     else:
         qtabs = [jpegs[0].qtables[c.tq] for c in frame.components]
     qtabs = [torch.from_numpy(np.ascontiguousarray(q, dtype=np.int32)).to(device) for q in qtabs]
-    rgb = pipeline.transform_batch(frame, acs, qtabs, config, color=bitstream.color_space(jpegs[0]),
-                                   dcs=dcs)
-    return rgb, resolve_scan_errors(errs, kernel_plans)
+    rgb = pipeline.transform_batch(frame, acs, qtabs, config, color=color, dcs=dcs, packed=packed)
+    layout = pipeline.layout_of(rgb)
+    if defer_errors:
+        return rgb, layout, (errs, kernel_plans)
+    return rgb, layout, resolve_scan_errors(errs, kernel_plans)
 
 
 def decode_all_scans(jpeg, device="cuda") -> Tuple[List[torch.Tensor], List[torch.Tensor]]:

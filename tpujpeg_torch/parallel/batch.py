@@ -1,0 +1,348 @@
+"""Batched decode of many mixed JPEGs on one device, each image
+fault-isolated: a corrupt member marks its slot failed and never kills
+the batch.
+
+Port of ``tpujpeg/parallel/batch.py``. ``decode_batch_on_device`` keeps
+the reference's two phases: it launches every progressive group and every
+geometry bucket with deferred errors (nothing read back), then resolves
+them in order, popping each as it goes so that its RGB can be released.
+
+- Progressive images group by ``scan_group_key`` and color space and run
+  kernels 7-9, 6 and the color stage per group
+  (``decode_all_scans_to_rgb_batch``). A group that raises goes image by
+  image: the scan kernels first, then host entropy and the device
+  transform where an image is outside their scope.
+- Baseline images bucket by geometry and color space (``_bucket_key``)
+  and run kernel A and the color stage per bucket
+  (``decode_batch_to_rgb``). A bucket that path rejects splits by
+  ``wavefront.plan_key``: members that share Huffman tables launch again
+  together, and members the planner refuses even alone (multi-scan,
+  marker-free, oversize segments) go image by image. A bucket with
+  nothing to split (more quantizer sets than kernel A takes) runs kernel
+  2 (``decode_batch_to_device(strict=False)``) and ``transform_batch``
+  in sub-buckets by quantizer set. Image by image: kernel 2 per scan
+  (``wavefront.decode_all_scans``), then, for marker-free and oversize
+  segments, host entropy (native C++) and the same transform. The
+  reference takes ``decode_norst_to_rgb`` there, which the marker-free
+  slice will port; its XLA wavefront has no counterpart.
+
+``decode_batch`` runs host entropy per image, then ``transform_batch``
+per (bucket, quantizer set) on `device`, or the plain torch transform
+with ``transform_engine="torch"``. The reference's mesh sharding
+(``n_devices``) is not ported: this one takes a `device`.
+
+Images are numpy arrays when ``config.to_numpy`` (the default), else
+tensors on `device`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .. import bitstream
+from .. import transform as T
+from ..config import DEFAULT_CONFIG, DecodeConfig
+from ..decoder import _entropy_decode
+from ..errors import JpegError, JpegUnsupportedError
+from ..kernels import pipeline
+from ..kernels import wavefront as wf
+from ..kernels import wavefront_prog as wp
+from ..stats import DecodeStats
+
+
+@dataclasses.dataclass
+class BatchResult:
+    """Per-image outputs; `errors[i]` is set iff `images[i]` is None."""
+
+    images: List[Optional[object]]
+    errors: Dict[int, Exception]
+    stats: List[Optional[DecodeStats]]
+
+
+def _bucket_key(jpeg) -> Tuple:
+    frame = jpeg.frame
+    return (
+        frame.height,
+        frame.width,
+        tuple((c.h, c.v) for c in frame.components),
+        # Color interpretation is marker-driven (JFIF/Adobe APP14): a YCbCr
+        # and an Adobe-RGB file of one geometry must not share a transform.
+        bitstream.color_space(jpeg),
+    )
+
+
+def _as_error(e: Exception) -> JpegError:
+    """A member's failure as a JpegError. Callers let RuntimeError through
+    wherever a kernel or the card may raise it (a kernel that fails to
+    build or launch, the card out of memory): that is no member's fault,
+    and its work must not move to the host."""
+    return e if isinstance(e, JpegError) else JpegError(f"internal decode failure: {e!r}")
+
+
+def _qkey(jpeg) -> Tuple[bytes, ...]:
+    return tuple(jpeg.qtables[c.tq].astype(np.int32).tobytes() for c in jpeg.frame.components)
+
+
+def _host_config(config: DecodeConfig) -> DecodeConfig:
+    """The host entropy engine of a fallback: the configured one when it
+    names a host engine, else 'auto' (native C++, or the python oracle
+    where the native library does not build)."""
+    if config.entropy_engine in ("native", "python"):
+        return config
+    return dataclasses.replace(config, entropy_engine="auto")
+
+
+def _transform_by_qset(jpegs: Sequence, coeffs: Sequence[Sequence], config: DecodeConfig,
+                       device: torch.device, emit: Callable[[int, torch.Tensor], None]) -> None:
+    """``transform_batch`` over images of one bucket in sub-buckets of one
+    quantizer set each; coeffs[k] holds image k's per-component int32
+    [padded_blocks, 64] (tensors on `device` or host arrays). Calls
+    emit(k, rgb) for every image."""
+    by_q: Dict[Tuple, List[int]] = {}
+    for k, j in enumerate(jpegs):
+        by_q.setdefault(_qkey(j), []).append(k)
+    frame = jpegs[0].frame
+    for ks in by_q.values():
+        j0 = jpegs[ks[0]]
+        stack = [torch.stack([torch.as_tensor(coeffs[k][ci]).to(device) for k in ks])
+                 for ci in range(frame.n_components)]
+        qtabs = [j0.qtables[c.tq].astype(np.int32) for c in frame.components]
+        out = pipeline.transform_batch(frame, stack, qtabs, config, color=bitstream.color_space(j0))
+        for slot, k in enumerate(ks):
+            emit(k, out[slot])
+
+
+def decode_batch_on_device(datas: Sequence[bytes], config: DecodeConfig = DEFAULT_CONFIG,
+                           device="cuda") -> BatchResult:
+    """Decode a batch of JPEG byte strings on `device`: the entropy decode
+    runs there too (kernel A, 2 or 7-9) wherever the stream allows it, so
+    coefficients reach the host only on the host-entropy fallback. A
+    member's data error fails its slot; a kernel that fails to build or
+    launch, or the card running out of memory, raises."""
+    device = torch.device(device)
+    kernel_engine = "cuda" if device.type == "cuda" else "torch"
+    n = len(datas)
+    images: List[Optional[object]] = [None] * n
+    errors: Dict[int, Exception] = {}
+    stats: List[Optional[DecodeStats]] = [None] * n
+
+    # Host stage: parse only, fault-isolated.
+    jpegs: List = [None] * n
+    baseline: List[int] = []
+    progressive: List[int] = []
+    for i, data in enumerate(datas):
+        try:
+            j = bitstream.parse(data)
+        except Exception as e:  # a batch boundary: no member may kill it
+            errors[i] = _as_error(e)
+            continue
+        jpegs[i] = j
+        (progressive if j.frame.progressive else baseline).append(i)
+
+    def record(i: int, img: torch.Tensor, engine: str) -> None:
+        frame = jpegs[i].frame
+        images[i] = img.cpu().numpy() if config.to_numpy else img
+        st = DecodeStats()
+        st.width, st.height = frame.width, frame.height
+        st.n_components = frame.n_components
+        st.progressive = frame.progressive
+        st.entropy_engine = engine
+        st.entropy_fallbacks = 0 if engine in ("wavefront-fused", "wavefront-prog") else 1
+        st.transform_engine = kernel_engine
+        stats[i] = st
+
+    # Images decoded to coefficients one by one: (index, coefficients,
+    # engine), transformed together at the end by bucket and quantizer set.
+    decoded: List[Tuple[int, List, str]] = []
+
+    def host_entropy(i: int) -> None:
+        """The last rung: host entropy."""
+        st = DecodeStats()
+        try:
+            decoded.append((i, _entropy_decode(jpegs[i], _host_config(config), st, device),
+                            st.entropy_engine))
+        except RuntimeError:
+            raise  # not the member's fault
+        except Exception as e:  # per-image isolation
+            errors[i] = _as_error(e)
+
+    def prog_one(i: int) -> None:
+        """One progressive image alone: the scan kernels, else (outside
+        their scope) host entropy."""
+        try:
+            rgb, _layout, failures = wp.decode_all_scans_to_rgb_batch([jpegs[i]], config, device=device)
+        except JpegUnsupportedError:
+            host_entropy(i)
+            return
+        except JpegError as e:
+            errors[i] = e
+            return
+        if 0 in failures:
+            errors[i] = failures[0]
+        else:
+            record(i, rgb[0], "wavefront-prog")
+
+    def coeff_one(i: int) -> None:
+        """One baseline image outside the shared planner's scope: kernel 2
+        per scan (multi-scan files too), else (marker-free or oversize
+        segments) host entropy."""
+        try:
+            decoded.append((i, wf.decode_all_scans(jpegs[i], config, device), "wavefront-coeff"))
+        except JpegUnsupportedError:
+            host_entropy(i)
+        except JpegError as e:
+            errors[i] = e
+
+    # Phase 1: launch every progressive group and every bucket, reading
+    # nothing back.
+    groups: Dict[Tuple, List[int]] = {}
+    for i in progressive:
+        try:
+            key = (wp.scan_group_key(jpegs[i]), bitstream.color_space(jpegs[i]))
+        except Exception:  # an unkeyable stream decodes alone
+            key = ("solo", i)
+        groups.setdefault(key, []).append(i)
+    prog_pending = []
+    for members in groups.values():
+        try:
+            rgb, _layout, deferred = wp.decode_all_scans_to_rgb_batch(
+                [jpegs[i] for i in members], config, defer_errors=True, device=device)
+        except JpegError:  # a plan-time error poisons the shared plan
+            for i in members:
+                prog_one(i)
+            continue
+        prog_pending.append((members, rgb, deferred))
+
+    pending = []
+    coeff_buckets: List[List[int]] = []  # kernel 2 by quantizer set
+    solo: List[int] = []                 # per image: coeff_one
+
+    def launch(members: List[int]) -> None:
+        """Kernel A and the color stage for one bucket. A bucket the shared
+        plan rejects splits: members that share Huffman tables and fit the
+        planner alone launch again together, the rest go image by image; a
+        bucket with nothing to split takes kernel 2."""
+        try:
+            rgb, deferred = wf.decode_batch_to_rgb([jpegs[i] for i in members], config,
+                                                   defer_errors=True, device=device)
+        except JpegError:
+            by_tables: Dict[Tuple, List[int]] = {}
+            for i in members:
+                try:
+                    by_tables.setdefault(wf.plan_key(jpegs[i]), []).append(i)
+                except JpegError:
+                    solo.append(i)
+            parts = list(by_tables.values())
+            if parts == [members]:
+                coeff_buckets.append(members)
+            else:
+                for part in parts:
+                    launch(part)
+            return
+        pending.append((members, rgb, deferred))
+
+    buckets: Dict[Tuple, List[int]] = {}
+    for i in baseline:
+        buckets.setdefault(_bucket_key(jpegs[i]), []).append(i)
+    for members in buckets.values():
+        launch(members)
+
+    # Phase 2: resolve in launch order.
+    while prog_pending:
+        members, rgb, (errs, plans) = prog_pending.pop(0)
+        failures = wp.resolve_scan_errors(errs, plans)
+        for li, i in enumerate(members):
+            if li in failures:
+                errors[i] = failures[li]
+            else:
+                record(i, rgb[li], "wavefront-prog")
+    while pending:
+        members, rgb, (err, plan) = pending.pop(0)
+        failures = wf.resolve_rgb_errors(err, plan)
+        for li, i in enumerate(members):
+            if li in failures:
+                errors[i] = failures[li]
+            else:
+                record(i, rgb[li], "wavefront-fused")
+
+    for members in coeff_buckets:
+        sub = [jpegs[i] for i in members]
+        try:
+            coeffs, failures = wf.decode_batch_to_device(sub, config, strict=False, device=device)
+        except JpegError:
+            solo.extend(members)
+            continue
+        for li, exc in failures.items():
+            errors[members[li]] = exc
+        ok = [li for li in range(len(members)) if li not in failures]
+        if ok:
+            _transform_by_qset([sub[li] for li in ok], [coeffs[li] for li in ok], config, device,
+                               lambda k, img: record(members[ok[k]], img, "wavefront-coeff"))
+    for i in solo:
+        coeff_one(i)
+
+    by_bucket: Dict[Tuple, List[Tuple[int, List, str]]] = {}
+    for entry in decoded:
+        by_bucket.setdefault(_bucket_key(jpegs[entry[0]]), []).append(entry)
+    for entries in by_bucket.values():
+        _transform_by_qset([jpegs[i] for i, _c, _e in entries], [c for _i, c, _e in entries], config, device,
+                           lambda k, img, entries=entries: record(entries[k][0], img, entries[k][2]))
+
+    return BatchResult(images=images, errors=errors, stats=stats)
+
+
+def decode_batch(datas: Sequence[bytes], config: DecodeConfig = DEFAULT_CONFIG,
+                 device="cuda") -> BatchResult:
+    """Decode a batch of JPEG byte strings: parse and entropy decode on the
+    host per image under try/except (``config.entropy_engine``), then one
+    transform per (bucket, quantizer set) on `device`: kernel 6 and the
+    color stage, or with ``transform_engine="torch"`` the plain torch
+    transform per image."""
+    device = torch.device(device)
+    if config.transform_engine not in ("auto", "cuda", "torch"):
+        raise ValueError(f"unknown transform engine {config.transform_engine!r}")
+    plain = config.transform_engine == "torch"
+    transform_engine = "cuda" if device.type == "cuda" and not plain else "torch"
+    n = len(datas)
+    images: List[Optional[object]] = [None] * n
+    errors: Dict[int, Exception] = {}
+    stats: List[Optional[DecodeStats]] = [None] * n
+
+    buckets: Dict[Tuple, List[Tuple[int, object, List]]] = {}
+    for i, data in enumerate(datas):
+        st = DecodeStats()
+        try:
+            jpeg = bitstream.parse(data)
+            coeffs = _entropy_decode(jpeg, config, st, device)
+        except RuntimeError:
+            raise  # not the member's fault
+        except Exception as e:  # a batch boundary: no member may kill it
+            errors[i] = _as_error(e)
+            continue
+        frame = jpeg.frame
+        st.width, st.height = frame.width, frame.height
+        st.n_components = frame.n_components
+        st.progressive = frame.progressive
+        st.transform_engine = transform_engine
+        stats[i] = st
+        buckets.setdefault(_bucket_key(jpeg), []).append((i, jpeg, coeffs))
+
+    def emit(i: int, img: torch.Tensor) -> None:
+        images[i] = img.cpu().numpy() if config.to_numpy else img
+
+    for entries in buckets.values():
+        if plain:
+            for i, jpeg, coeffs in entries:
+                frame = jpeg.frame
+                qtabs = [torch.from_numpy(jpeg.qtables[c.tq].astype(np.int32)).to(device)
+                         for c in frame.components]
+                emit(i, T.transform_frame(frame, [torch.as_tensor(c).to(device) for c in coeffs], qtabs,
+                                          config.fancy_upsampling, bitstream.color_space(jpeg)))
+            continue
+        _transform_by_qset([e[1] for e in entries], [e[2] for e in entries], config, device,
+                           lambda k, img, entries=entries: emit(entries[k][0], img))
+    return BatchResult(images=images, errors=errors, stats=stats)

@@ -1,0 +1,225 @@
+"""Pipelined stream: host prep on worker threads overlapped with the
+device's decode of earlier chunks.
+
+Port of ``tpujpeg/parallel/stream.py``. The stages per chunk of images:
+
+  prep   (worker threads)  parse + ``build_block_plan`` (the native row
+                           packer releases the interpreter lock; parsing
+                           does not); on a CUDA device the planner packs
+                           the rows straight into pinned host memory
+  submit (main thread)     copy the plan to the card without blocking and
+                           launch kernel A and the color kernel on the
+                           current stream, then record a CUDA event; the
+                           in-flight record keeps the pinned plan alive
+                           until that event has passed
+  sync   (main thread)     wait for the event and read back the per-lane
+                           error vector (``resolve_rgb_errors``)
+
+At most `depth` chunks are in flight, and up to `prep_workers + depth`
+chunks are queued for prep. Everything runs on the one current stream, so
+the copies, kernels and readbacks are ordered without further events.
+Chunks the fused path cannot take (mixed geometry, progressive, oversize
+or marker-free segments, a plan-time data error) fall back at sync time
+to ``decode_batch_on_device``, then (where it raises a JpegError) to
+``decode_batch``; a kernel or card failure raises. On a CPU device
+nothing is pinned and the kernels' plain versions run.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Iterator, List, Optional, Sequence
+
+import torch
+
+from .. import bitstream
+from ..config import DEFAULT_CONFIG, DecodeConfig
+from ..errors import JpegError, JpegUnsupportedError
+from ..kernels import wavefront as wf
+from ..stats import DecodeStats
+from .batch import BatchResult, decode_batch, decode_batch_on_device
+
+LAYOUTS = ("nhwc", "packed16")
+
+
+@dataclasses.dataclass
+class _Unit:
+    """One prepped chunk: a fused-path plan, or a fallback."""
+
+    members: List[int]               # original indices of cleanly parsed images
+    jpegs: List
+    plan: Optional[wf.LanePlan]      # None -> fallback
+    failures: Dict[int, Exception]   # original index -> parse error
+    datas: Optional[List[bytes]] = None  # kept for the fallback only
+
+
+@dataclasses.dataclass
+class StreamChunk:
+    """One decoded chunk, yielded in submission order. `images[k]` is the
+    image of original index `members[k]` (a view of the chunk's batch on
+    the device on the fused path), or None when `failures` has that index.
+    `layout` is "nhwc" (uint8 [H, W, 3]) or "packed16" (planar uint16
+    [3, H, W/2] whose little-endian bytes are the planar uint8 raster)."""
+
+    members: List[int]
+    images: List[Optional[object]]
+    failures: Dict[int, Exception]
+    engine: str
+    layout: str = "nhwc"
+
+
+def _prep(datas: Sequence[bytes], members: List[int], pin: bool) -> _Unit:
+    """Worker-thread stage: parse + plan, fault-isolated."""
+    jpegs: List = []
+    ok: List[int] = []
+    failures: Dict[int, Exception] = {}
+    for i in members:
+        try:
+            jpegs.append(bitstream.parse(datas[i]))
+            ok.append(i)
+        except JpegError as e:
+            failures[i] = e
+        except Exception as e:  # never kill the stream
+            failures[i] = JpegError(f"internal parse failure: {e!r}")
+    if not ok:
+        return _Unit(ok, jpegs, None, failures)
+    try:
+        if any(j.frame.progressive for j in jpegs):
+            raise JpegUnsupportedError("progressive: the fallback decodes it")
+        plan = wf.build_block_plan(jpegs, pin_memory=pin)
+        if int(plan.qsets.shape[0]) > wf.MAX_QSETS:
+            raise JpegUnsupportedError("too many quantizer sets for the fused path")
+    except JpegError:
+        # Outside the fused path, or a plan-time data error that would
+        # poison the whole chunk: the fallback isolates images.
+        return _Unit(ok, jpegs, None, failures, [datas[i] for i in ok])
+    return _Unit(ok, jpegs, plan, failures)
+
+
+@dataclasses.dataclass
+class _InFlight:
+    unit: _Unit
+    rgb: Optional[torch.Tensor] = None
+    err: Optional[torch.Tensor] = None
+    layout: str = "nhwc"
+    done: Optional[torch.cuda.Event] = None  # passed once the unit's pinned plan is free
+
+
+def _submit(unit: _Unit, config: DecodeConfig, device: torch.device, packed: bool) -> _InFlight:
+    """Main-thread stage: asynchronous copy and launches of the fused chain."""
+    if unit.plan is None:
+        return _InFlight(unit)  # the fallback decodes at sync time
+    rgb, layout, err = wf.decode_plan_to_rgb(unit.plan, unit.jpegs, config, device, packed=packed)
+    done = None
+    if device.type == "cuda":
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(device))
+    return _InFlight(unit, rgb, err, layout, done)
+
+
+def _sync(flight: _InFlight, config: DecodeConfig, device: torch.device) -> StreamChunk:
+    """Main-thread stage: wait for the chunk, map failures, slice images."""
+    unit = flight.unit
+    failures = dict(unit.failures)
+    members = list(unit.members) + list(unit.failures)
+    if unit.plan is None:
+        images: List[Optional[object]] = [None] * len(unit.members)
+        if unit.datas:
+            # The device ladder first; host entropy per image where it
+            # refuses the chunk as a whole. A kernel or card failure
+            # (RuntimeError) propagates: its work never moves to the host.
+            try:
+                res = decode_batch_on_device(unit.datas, config, device)
+            except JpegError:
+                res = decode_batch(unit.datas, config, device)
+            for k, i in enumerate(unit.members):
+                if k in res.errors:
+                    failures[i] = res.errors[k]
+                else:
+                    images[k] = res.images[k]
+        images += [None] * len(unit.failures)
+        return StreamChunk(members, images, failures, "fallback")
+
+    if flight.done is not None:
+        flight.done.synchronize()
+    local = wf.resolve_rgb_errors(flight.err, unit.plan)
+    images = []
+    for k, i in enumerate(unit.members):
+        if k in local:
+            failures[i] = local[k]
+            images.append(None)
+        else:
+            images.append(flight.rgb[k])
+    images += [None] * len(unit.failures)
+    return StreamChunk(members, images, failures, "wavefront-fused", flight.layout)
+
+
+def decode_stream(datas: Sequence[bytes], config: DecodeConfig = DEFAULT_CONFIG,
+                  chunk_size: int = 64, depth: int = 2, prep_workers: int = 3,
+                  layout: str = "nhwc", device="cuda") -> Iterator[StreamChunk]:
+    """Decode a long sequence of JPEGs as a pipelined stream of chunks on
+    `device`.
+
+    Yields one StreamChunk per `chunk_size` images, in order. Host prep of
+    later chunks runs on `prep_workers` threads while the device decodes,
+    with at most `depth` chunks in flight. Images stay on the device
+    unless ``config.to_numpy`` (which reads each chunk back before it is
+    yielded). layout="packed16" asks for the planar kernels' packed16 form
+    (chunk.layout says whether it applied: 4:2:0 and 4:2:2 YCbCr with an
+    even width); the chain then ends at the color kernel."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout {layout!r}: want one of {LAYOUTS}")
+    device = torch.device(device)
+    pin = device.type == "cuda"
+    n = len(datas)
+    starts = list(range(0, n, chunk_size))
+    with ThreadPoolExecutor(max_workers=prep_workers) as ex:
+        prep_q: collections.deque = collections.deque()
+        inflight: collections.deque = collections.deque()
+        next_chunk = 0
+
+        def refill():
+            nonlocal next_chunk
+            while next_chunk < len(starts) and len(prep_q) < prep_workers + depth:
+                s = starts[next_chunk]
+                prep_q.append(ex.submit(_prep, datas, list(range(s, min(s + chunk_size, n))), pin))
+                next_chunk += 1
+
+        refill()
+        while prep_q or inflight:
+            while prep_q and len(inflight) < depth:
+                unit = prep_q.popleft().result()
+                refill()
+                inflight.append(_submit(unit, config, device, layout == "packed16"))
+            chunk = _sync(inflight.popleft(), config, device)
+            if config.to_numpy:
+                chunk.images = [im.cpu().numpy() if isinstance(im, torch.Tensor) else im
+                                for im in chunk.images]
+            yield chunk
+
+
+def decode_batch_pipelined(datas: Sequence[bytes], config: DecodeConfig = DEFAULT_CONFIG,
+                           chunk_size: int = 64, depth: int = 2, prep_workers: int = 3,
+                           layout: str = "nhwc", device="cuda") -> BatchResult:
+    """``decode_batch_on_device``'s result through the pipelined stream,
+    built by draining ``decode_stream``. `layout` as there (the reference's
+    entry has no layout: it is always "nhwc")."""
+    device = torch.device(device)
+    n = len(datas)
+    images: List[Optional[object]] = [None] * n
+    errors: Dict[int, Exception] = {}
+    stats: List[Optional[DecodeStats]] = [None] * n
+    for chunk in decode_stream(datas, config, chunk_size=chunk_size, depth=depth,
+                               prep_workers=prep_workers, layout=layout, device=device):
+        errors.update(chunk.failures)
+        for k, i in enumerate(chunk.members):
+            if i in chunk.failures:
+                continue
+            images[i] = chunk.images[k]
+            st = DecodeStats()
+            st.entropy_engine = chunk.engine
+            st.transform_engine = "cuda" if device.type == "cuda" else "torch"
+            stats[i] = st
+    return BatchResult(images=images, errors=errors, stats=stats)
