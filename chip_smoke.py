@@ -9,7 +9,9 @@ of tpujpeg/. Phases, one JSON line each:
 
 1. device: the card's name and power limit.
 2. build: nvcc builds the eleven kernels into tpujpeg_torch/_build/ (one
-   nvcc per source, all started together).
+   nvcc per source, all started together), and its -Xptxas -v report:
+   registers, stack and spill bytes per kernel. The redesigned lane
+   kernels (A, 2 and 9) must show no stack and no spill.
 3. kernel_vs_plain: on every fused-path fixture at batch 2, kernel A's
    planes and error bits, kernel 2's coefficients and error bits,
    kernel 6's planes from those coefficients, and kernel B/C/D's RGB,
@@ -123,6 +125,8 @@ STREAM_CHUNKS = 4   # the stream phase's chunks of MAIN_BATCH images
 BATCH_RUNG = {"prog_2048": "native", "norst_2048": "native", "multiscan": "wavefront-coeff"}
 PROG_MAIN = "prog_rst_2048"   # the progressive phase's fixture
 PROG_KERNEL = {"dc_first": "prog_dc_first", "ac_first": "prog_ac_first", "ac_refine": "prog_ac_refine"}
+# The kernels redesigned to keep nothing in local memory.
+NO_LOCAL_MEMORY = ("wavefront_pixels_kernel", "wavefront_coeff_kernel", "prog_ac_refine_kernel")
 
 # The card's roofs for bound_ms: HBM3 at 3.35 TB/s, and integer work at
 # the issue rate of 132 SMs x 128 lanes x 1.98 GHz with two operations
@@ -305,9 +309,16 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    build.build(verbose=True)
+    build.build()
     build.get_lib()
-    emit("build", seconds=time.perf_counter() - t0, library=os.path.relpath(build.library_path(), HERE))
+    ptxas = build.ptxas_report()
+    check(ptxas is not None, "no -Xptxas -v report beside the library")
+    emit("build", seconds=time.perf_counter() - t0, library=os.path.relpath(build.library_path(), HERE),
+         ptxas=ptxas)
+    for k in NO_LOCAL_MEMORY:
+        r = ptxas.get(k, {})
+        check(r.get("stack") == 0 and r.get("spill_stores") == 0 and r.get("spill_loads") == 0,
+              f"{k}: stack or spill in the ptxas report ({r})")
 
     color_fns = {
         "upsample_color_h2v2": (sc.upsample_color_h2v2, sc.upsample_color_h2v2_plain),

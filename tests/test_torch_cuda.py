@@ -50,8 +50,25 @@ def _read(name):
         return f.read()
 
 
-def _kernel_and_plain(jpegs, dev):
+RANDOM_ROWS = "420_2048-random_rows"
+
+
+def _fixture_plan(name, n=2):
+    """n copies of fixture `name` and their plan; RANDOM_ROWS is
+    420_2048's plan with its rows replaced by seeded random words, which
+    reach the codes of 10-16 bits and the invalid codes that the
+    lookahead table hands to the maxcode walk."""
+    base = "420_2048" if name == RANDOM_ROWS else name
+    jpegs = [tpujpeg_torch.bitstream.parse(_read(base)) for _ in range(n)]
     plan = wf.build_block_plan(jpegs)
+    if name == RANDOM_ROWS:
+        g = torch.Generator().manual_seed(17)
+        plan.bits = torch.randint(-(2**31), 2**31 - 1, plan.bits.shape, generator=g, dtype=torch.int32)
+    return jpegs, plan
+
+
+def _kernel_and_plain(jpegs, dev, plan=None):
+    plan = plan if plan is not None else wf.build_block_plan(jpegs)
     geoms = [wf.ImageGeom.of(j) for j in jpegs]
     before = build.LAUNCHES["wavefront_pixels"]
     planes, err = wf.decode_lanes_to_planes(plan, geoms, dev)
@@ -65,11 +82,11 @@ def _kernel_and_plain(jpegs, dev):
     return err
 
 
-@pytest.mark.parametrize("name", FUSED)
+@pytest.mark.parametrize("name", FUSED + [RANDOM_ROWS])
 def test_kernel_a_matches_plain_on_fixtures(cuda, name):
-    data = _read(name)
-    err = _kernel_and_plain([tpujpeg_torch.bitstream.parse(data) for _ in range(2)], cuda)
-    assert not err.any()
+    jpegs, plan = _fixture_plan(name)
+    err = _kernel_and_plain(jpegs, cuda, plan)
+    assert bool(err.any()) == (name == RANDOM_ROWS)
 
 
 def _corrupt_batch():
@@ -103,11 +120,10 @@ def test_kernel_a_matches_plain_on_corrupt_streams(cuda):
     assert err.any()
 
 
-def _coeff_kernel_and_plain(jpegs, dev):
-    """Kernel 2 against its plain version: error bits for every lane,
-    coefficients for the images that did not fail (a failing lane's
-    blocks are garbage, and the image is dropped)."""
-    plan = wf.build_block_plan(jpegs)
+def _coeff_kernel_and_plain(jpegs, dev, plan=None):
+    """Kernel 2 against its plain version: error bits for every lane and
+    coefficients for every image, a failing lane's blocks included."""
+    plan = plan if plan is not None else wf.build_block_plan(jpegs)
     geoms = [wf.ImageGeom.of(j) for j in jpegs]
     before = build.LAUNCHES["wavefront_coeff"]
     coeffs, err = wf.decode_lanes_to_coeffs(plan, geoms, dev)
@@ -116,18 +132,34 @@ def _coeff_kernel_and_plain(jpegs, dev):
     want, want_err = wf.decode_lanes_to_coeffs(plan, geoms, dev, plain=True)
     assert build.LAUNCHES["wavefront_coeff"] == before + 1
     assert torch.equal(err, want_err)
-    failed = set(plan.lane_meta[err.cpu() != 0, 0].tolist())
-    ok = [i for i in range(len(jpegs)) if i not in failed]
     for a, b in zip(coeffs, want):
-        assert a.dtype == torch.int32 and torch.equal(a[ok], b[ok])
+        assert a.dtype == torch.int32 and torch.equal(a, b)
     return err
 
 
-@pytest.mark.parametrize("name", FUSED)
+@pytest.mark.parametrize("name", FUSED + [RANDOM_ROWS])
 def test_kernel_2_matches_plain_on_fixtures(cuda, name):
-    data = _read(name)
-    err = _coeff_kernel_and_plain([tpujpeg_torch.bitstream.parse(data) for _ in range(2)], cuda)
-    assert not err.any()
+    jpegs, plan = _fixture_plan(name)
+    err = _coeff_kernel_and_plain(jpegs, cuda, plan)
+    assert bool(err.any()) == (name == RANDOM_ROWS)
+
+
+def test_kernel_a_and_2_launch_without_syncing_the_stream(cuda):
+    """With the plan on the card, launching kernel A or 2 copies nothing
+    to the card and never waits for the stream (sync debug mode raises
+    on any synchronizing call)."""
+    jpegs, plan = _fixture_plan("420_odd")
+    plan = plan.to(cuda)
+    geoms = [wf.ImageGeom.of(j) for j in jpegs]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        planes, err = wf.decode_lanes_to_planes(plan, geoms, cuda)
+        coeffs, err2 = wf.decode_lanes_to_coeffs(plan, geoms, cuda)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert not err.any() and torch.equal(err, err2)
 
 
 def test_kernel_2_matches_plain_on_corrupt_streams(cuda):
@@ -297,11 +329,14 @@ def test_prog_kernels_match_plain_on_corrupt_streams(cuda):
     assert bad > 0
 
 
+@pytest.mark.parametrize("density", [0.3, 0.95])
 @pytest.mark.parametrize("seed", range(4))
-def test_prog_kernels_match_plain_on_random_rows_and_state(cuda, seed):
+def test_prog_kernels_match_plain_on_random_rows_and_state(cuda, seed, density):
     """The lane rows of prog_gray's scans replaced by random words, and
-    each AC scan applied to a random sparse state: the band machine of
-    kernel 9 meets nonzero patterns no encoder wrote."""
+    each AC scan applied to a random state with `density` of its values
+    nonzero: the band machine of kernel 9 meets nonzero patterns no
+    encoder wrote, and at 95% bands with more than 32 nonzeros take two
+    correction chunks."""
     jpegs = [tpujpeg_torch.bitstream.parse(_read("prog_gray")) for _ in range(2)]
     g = torch.Generator().manual_seed(seed)
     steps = wp.plan_scans(jpegs)
@@ -310,7 +345,7 @@ def test_prog_kernels_match_plain_on_random_rows_and_state(cuda, seed):
             st.bits = torch.randint(-(2**31), 2**31 - 1, st.bits.shape, generator=g, dtype=torch.int32)
     acs, dcs = wp.new_state(jpegs[0].frame, 2, cuda)
     vals = torch.randint(-40, 40, acs[0].shape, generator=g, dtype=torch.int32)
-    vals[torch.rand(acs[0].shape, generator=g) < 0.7] = 0
+    vals[torch.rand(acs[0].shape, generator=g) >= density] = 0
     for st in steps:
         if not isinstance(st, wp.ScanPlan) or st.kind == "dc_first":
             continue

@@ -4,6 +4,10 @@ plain lane decoder's component planes and per-lane error codes, and the
 planner's rejections. Inputs are the reference tests' own corpus calls.
 Tolerance 0."""
 
+import json
+import os
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -212,3 +216,76 @@ def test_decode_lanes_rejects_unknown_device():
     plan = pw.build_block_plan([jpeg])
     with pytest.raises(ValueError):
         pw.decode_lanes_to_planes(plan, [pw.ImageGeom.of(jpeg)], torch.device("meta"))
+
+
+# ---------------------------------------------------------------------------
+# The kernels' 9-bit lookahead rule (tj_lookahead_entry, csrc/common.cuh)
+# ---------------------------------------------------------------------------
+
+
+def _synthetic_spec(counts_at):
+    counts = np.zeros(16, np.int64)
+    for length, n in counts_at.items():
+        counts[length - 1] = n
+    values = (np.arange(int(counts.sum())) * 7 % 256).astype(np.uint8)
+    return types.SimpleNamespace(counts=counts, values=values)
+
+
+def _lookahead_tables():
+    """Every distinct Huffman table of the committed fixtures, and three
+    synthetic ones: codes only up to 9 bits, codes only from 10 bits,
+    and a table with unused lengths between its codes."""
+    fixtures = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                            "tpujpeg_torch", "fixtures")
+    with open(os.path.join(fixtures, "manifest.json")) as f:
+        manifest = json.load(f)
+    tables, seen = {}, set()
+    for name, entry in manifest["fixtures"].items():
+        with open(os.path.join(fixtures, entry["file"]), "rb") as f:
+            jpeg = bitstream.parse(f.read())
+        for si, scan in enumerate(jpeg.scans):
+            for (cls, tid), spec in sorted(scan.huff.items()):
+                if pw._spec_key(spec) not in seen:
+                    seen.add(pw._spec_key(spec))
+                    tables[f"{name}-scan{si}-{'ac' if cls else 'dc'}{tid}"] = pw.CanonTable.from_spec(spec)
+    for name, counts in (("only_short", {2: 1, 3: 5, 4: 1, 5: 1, 6: 1, 7: 1, 8: 1, 9: 1}),
+                         ("only_long", {10: 200, 16: 56}),
+                         ("unused_lengths", {2: 2, 5: 6, 12: 100, 16: 50})):
+        tables[name] = pw.CanonTable.from_spec(_synthetic_spec(counts))
+    return tables
+
+
+LOOKAHEAD_TABLES = _lookahead_tables()
+
+
+@pytest.mark.parametrize("name", list(LOOKAHEAD_TABLES))
+def test_lookahead_table_and_walk_from_10_match_decode_symbol(name):
+    """For every 16-bit window, the lookahead entry, or where it is 0 the
+    maxcode walk from length 10, gives _decode_symbol's (symbol, length),
+    invalid codes (length 17, huffval[0]) included."""
+    t = LOOKAHEAD_TABLES[name]
+    win = torch.arange(1 << 16, dtype=torch.int64) << 16
+    hv = torch.tensor(t.huffval, dtype=torch.int64)
+    want_sym, want_len = pw._decode_symbol(win, t.maxcode, t.valoffset, hv)
+    entry = pw.lookahead_table(t).to(torch.int64)[win >> (32 - pw.LOOKAHEAD_BITS)]
+    walk_sym, walk_len = pw._decode_symbol(win, (-1,) * 10 + t.maxcode[10:], t.valoffset, hv)
+    hit = entry > 0
+    assert torch.equal(torch.where(hit, entry & 255, walk_sym), want_sym)
+    assert torch.equal(torch.where(hit, entry >> 8, walk_len), want_len)
+    short = [l for l in range(1, 10) if t.maxcode[l] >= 0]
+    assert bool(hit.any()) == bool(short)
+    assert not bool((entry >> 8 > pw.LOOKAHEAD_BITS).any())
+
+
+def test_table_sets_share_equal_tables():
+    """Blocks of one component share one staged table set; equal table
+    pairs on different components share it too."""
+    jpeg = bitstream.parse(_case(FUSED_CASES[0]))
+    plan = pw.build_block_plan([jpeg])
+    sets = pw.table_sets(plan.blk_tables)
+    assert len(sets) == plan.blocks_per_mcu
+    pairs = [(d, a) for _ci, d, a in plan.blk_tables]
+    for i in range(len(sets)):
+        for j in range(len(sets)):
+            assert (sets[i] == sets[j]) == (pairs[i] == pairs[j])
+    assert sorted(set(sets)) == list(range(max(sets) + 1))

@@ -60,14 +60,45 @@ __device__ __forceinline__ u32 tj_window(const u32* row, int cur, int W, int P) 
   return (hi << sh) | (tj_load_word(row, w + 1, W, P) >> (32 - sh));
 }
 
+// The same window from a two-word register cache (kernels A, 2 and 9):
+// w0, w1 are words cw and cw + 1 of the row. A step of the callers moves
+// the cursor by at most 32 bits (a code of at most 17 bits plus at most
+// 15 value bits, or one chunk of at most 32 correction bits), so a new
+// cursor word is almost always cw + 1 and costs one load; any other move
+// reloads both words.
+struct TjWords {
+  const u32* row;
+  int W, P;
+  int cw;
+  u32 w0, w1;
+
+  __device__ __forceinline__ TjWords(const u32* r, int W_, int P_) : row(r), W(W_), P(P_), cw(0) {
+    w0 = tj_load_word(row, 0, W, P);
+    w1 = tj_load_word(row, 1, W, P);
+  }
+
+  __device__ __forceinline__ u32 window(int cur) {
+    const int w = cur >> 5;
+    if (w != cw) {
+      w0 = w == cw + 1 ? w1 : tj_load_word(row, w, W, P);
+      w1 = tj_load_word(row, w + 1, W, P);
+      cw = w;
+    }
+    return __funnelshift_l(w1, w0, cur & 31);  // (w0:w1) << (cur & 31), top word
+  }
+};
+
 // Canonical decode: the shortest length l whose maxcode admits the peeked
-// code; length 17 (and huffval[0]) when none does.
+// code; length 17 (and huffval[0]) when none does. The walk starts at
+// length l0 (lengths below it are known not to admit the code).
 __device__ __forceinline__ void tj_decode_symbol(u32 win, const int* mc, const int* vo,
-                                                 const uint8_t* hv, int& sym, int& len) {
+                                                 const uint8_t* hv, int& sym, int& len,
+                                                 int l0 = 1) {
   len = 17;
   int idx = 0;
 #pragma unroll
   for (int l = 1; l <= 16; ++l) {
+    if (l < l0) continue;
     int peek = (int)(win >> (32 - l));
     if (peek <= mc[l]) {
       len = l;
@@ -77,6 +108,40 @@ __device__ __forceinline__ void tj_decode_symbol(u32 win, const int* mc, const i
   }
   idx = idx < 0 ? 0 : (idx > 255 ? 255 : idx);
   sym = hv[idx];
+}
+
+// 9-bit lookahead: entry p of a table's 512 gives, for a window whose top
+// nine bits are p, (length << 8) | symbol when some length l <= 9 admits
+// the code (the shortest such l, by tj_decode_symbol's rule), else 0: the
+// decode then walks the maxcodes from length 10, so codes of 10-16 bits,
+// and invalid codes (length 17, huffval[0]), come out as tj_decode_symbol
+// gives them. wavefront.lookahead_table is the plain form of this rule.
+#define TJ_LOOKAHEAD_BITS 9
+
+__device__ __forceinline__ uint16_t tj_lookahead_entry(int p, const int* mc, const int* vo,
+                                                       const uint8_t* hv) {
+#pragma unroll
+  for (int l = 1; l <= TJ_LOOKAHEAD_BITS; ++l) {
+    const int peek = p >> (TJ_LOOKAHEAD_BITS - l);
+    if (peek <= mc[l]) {
+      int idx = peek + vo[l];
+      idx = idx < 0 ? 0 : (idx > 255 ? 255 : idx);
+      return (uint16_t)((l << 8) | hv[idx]);
+    }
+  }
+  return 0;
+}
+
+__device__ __forceinline__ void tj_decode_lookahead(u32 win, const uint16_t* lut, const int* mc,
+                                                    const int* vo, const uint8_t* hv, int& sym,
+                                                    int& len) {
+  const int e = lut[win >> (32 - TJ_LOOKAHEAD_BITS)];
+  if (e) {
+    len = e >> 8;
+    sym = e & 255;
+  } else {
+    tj_decode_symbol(win, mc, vo, hv, sym, len, TJ_LOOKAHEAD_BITS + 1);
+  }
 }
 
 // EXTEND of the `size` (0..15) magnitude bits after a `len` (<= 17) bit code.
@@ -136,11 +201,21 @@ __device__ __forceinline__ void tj_idct_1d(const int* in, int is, int* out, int 
 
 // islow IDCT of one dequantized natural-order block (columns, then rows),
 // +128 and clamp, stored as 8 rows of 8 u8 samples at dst, `pitch` bytes
-// apart (dst and pitch 8-byte aligned). Kernels A and 6 share it.
-__device__ __forceinline__ void tj_idct_islow_store(const int* coef, uint8_t* dst, size_t pitch) {
+// apart (dst and pitch 8-byte aligned). Kernels A and 6 share it. coef(n)
+// returns dequantized natural coefficient n; every index is a
+// compile-time constant, so the block and the workspace stay in
+// registers, and each column pass reads its 8 inputs just before it runs.
+template <class Coef>
+__device__ __forceinline__ void tj_idct_islow_store(const Coef& coef, uint8_t* dst, size_t pitch) {
   int ws[64];
 #pragma unroll
-  for (int c = 0; c < 8; ++c) tj_idct_1d(coef + c, 8, ws + c, 8, 11);
+  for (int c = 0; c < 8; ++c) {
+    int in[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) in[r] = coef(8 * r + c);
+    tj_idct_1d(in, 1, ws + c, 8, 11);
+  }
+#pragma unroll
   for (int r = 0; r < 8; ++r) {
     int o[8];
     tj_idct_1d(ws + r * 8, 1, o, 1, 18);

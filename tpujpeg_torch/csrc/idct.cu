@@ -71,7 +71,7 @@ __global__ void dequant_idct_islow_kernel(const int* __restrict__ coef,
   const int brow = b / pwb, bcol = b - brow * pwb;
   const size_t pitch = (size_t)pwb * 8;
   uint8_t* dst = out + ((size_t)img * phb * 8 + (size_t)brow * 8) * pitch + (size_t)bcol * 8;
-  tj_idct_islow_store(nat, dst, pitch);
+  tj_idct_islow_store([&](int n) { return nat[n]; }, dst, pitch);
 }
 
 // coef: int32 [n_images, phb * pwb, 64] zigzag; qtab: int32 [64], or

@@ -39,14 +39,18 @@
 // cursor update) and warp divergence between lanes of unequal length;
 // kernel 9 adds a 256-byte read of each block's band and, where a bit
 // changed it, a 256-byte write. The design keeps a lane's state in
-// registers (kernel 9's band in a thread-local array) and never leaves
-// the lane's thread; sorting lanes by length, warp-cooperative decode and
-// a band kept in shared memory are later work.
+// registers and never leaves the lane's thread. Kernel 9 keeps nothing
+// in local memory: the band machine runs on 64-bit masks,
+// the block sits in registers between load and write-back, the window
+// comes from kernel A's two-word register cache (TjWords) and symbols
+// from a 9-bit lookahead table the CTA builds in shared memory. Sorting
+// lanes by length and warp-cooperative decode are later work.
 //
 // Semantics follow the reference's code, including on corrupt streams:
-//  * the window is kernel A's stateless tj_window: the reference's
-//    register pair never advances more than 32 bits at once, so it reads
-//    the same words, past the row's end included;
+//  * the window is the one tj_window gives (kernels 7 and 8 call it,
+//    kernel 9 reads it through TjWords): the reference's register pair
+//    never advances more than 32 bits at once, so it reads the same
+//    words, past the row's end included;
 //  * error codes are assigned, not ORed (RUN overwrites BADCODE on the
 //    same symbol); TRUNC (cursor past seg_bits + 7 on a lane with MCUs)
 //    is ORed once, at the end; a lane with an error stops advancing;
@@ -232,39 +236,44 @@ __device__ __forceinline__ int nth_set(u64 m, int n) {
   return __ffsll((long long)m) - 1;
 }
 
-// One correction bit, in k order from the cursor, for each nonzero
-// coefficient whose bit is set in `nz`: where the bit is 1 and (v & p1) is
-// 0, v moves away from 0 by p1. Returns whether any value changed.
-__device__ __forceinline__ bool refine_nonzeros(const u32* row, int W, int P, int& cur, int* cv,
-                                                u64 nz, int p1) {
-  bool changed = false;
-  while (nz) {
-    const u32 win = tj_window(row, cur, W, P);
-    const int take = min(__popcll(nz), 32);
+// One correction bit, in k order from the cursor, for each position whose
+// bit is set in `r`, up to 32 bits per window. Returns the mask of the
+// positions whose bit is 1.
+__device__ __forceinline__ u64 refine_bits(TjWords& words, int& cur, u64 r) {
+  u64 hit = 0ull;
+  while (r) {
+    u32 win = words.window(cur);
+    const int take = min(__popcll(r), 32);
     for (int i = 0; i < take; ++i) {
-      const int j = __ffsll((long long)nz) - 1;
-      nz &= nz - 1;
-      const int v = cv[j];
-      if (((win >> (31 - i)) & 1u) && (v & p1) == 0) {
-        cv[j] = (int)((u32)v + (u32)(v >= 0 ? p1 : -p1));
-        changed = true;
-      }
+      const u64 low = r & (0ull - r);
+      r ^= low;
+      if ((int)win < 0) hit |= low;
+      win <<= 1;
     }
     cur += take;
   }
-  return changed;
+  return hit;
 }
 
+// The band machine runs on bit masks of the block (bit j for zigzag
+// position j): nz (nonzero within the band), fix ((v & p1) == 0), neg
+// (v < 0), hit (correction bit 1), placed and placed_neg (newly
+// significant coefficients and their signs). The block itself sits in 64
+// registers between its load and its write-back, both through
+// compile-time indices, so no array is indexed by a runtime value.
 __global__ void __launch_bounds__(TJ_PROG_THREADS) prog_ac_refine_kernel(AcArgs a) {
   __shared__ int s_tab[34];
   __shared__ uint8_t s_hv[256];
+  __shared__ uint16_t s_lut[512];
   stage_tables(a.ln, s_tab, s_hv);
+  __syncthreads();
+  for (int i = threadIdx.x; i < 512; i += blockDim.x)
+    s_lut[i] = tj_lookahead_entry(i, s_tab, s_tab + 17, s_hv);
   __syncthreads();
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= a.ln.L) return;
 
-  const int W = a.ln.W, P = a.ln.P;
-  const u32* row = a.ln.bits + (size_t)lane * W;
+  TjWords words(a.ln.bits + (size_t)lane * a.ln.W, a.ln.W, a.ln.P);
   const int img = a.ln.lane_meta[lane * 3 + 0];
   const int first = a.ln.lane_meta[lane * 3 + 1];
   const int lm = a.ln.lane_meta[lane * 3 + 2];
@@ -273,37 +282,42 @@ __global__ void __launch_bounds__(TJ_PROG_THREADS) prog_ac_refine_kernel(AcArgs 
   const int m1 = (int)(0xFFFFFFFFu << a.al);
   const u64 band = (~0ull >> (63 - se)) & (~0ull << ss);  // rows ss..se
   int cur = 0, err = 0, eob = 0;
-  int cv[64];
   for (int m = 0; m < lm && err == 0; ++m) {
     int4* blk = (int4*)block_of(a, img, first + m);
+    int v[64];
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
       const int4 q = blk[i];
-      cv[4 * i] = q.x;
-      cv[4 * i + 1] = q.y;
-      cv[4 * i + 2] = q.z;
-      cv[4 * i + 3] = q.w;
+      v[4 * i] = q.x;
+      v[4 * i + 1] = q.y;
+      v[4 * i + 2] = q.z;
+      v[4 * i + 3] = q.w;
     }
-    u64 nz = 0ull;
+    u64 nz = 0ull, fix = 0ull, neg = 0ull;
 #pragma unroll
-    for (int j = 0; j < 64; ++j) nz |= (u64)(cv[j] != 0) << j;
+    for (int j = 0; j < 64; ++j) {
+      nz |= (u64)(v[j] != 0) << j;
+      fix |= (u64)((v[j] & p1) == 0) << j;
+      neg |= (u64)(v[j] < 0) << j;
+    }
     nz &= band;
-    bool changed = false;
+    u64 hit = 0ull, placed = 0ull, placed_neg = 0ull;
     if (eob > 0) {
       // A pending run: the whole band is one tail of correction bits.
-      changed = refine_nonzeros(row, W, P, cur, cv, nz, p1);
+      hit = refine_bits(words, cur, nz);
       --eob;
     } else {
       int k = ss;
       while (true) {
-        const u32 win = tj_window(row, cur, W, P);
+        const u32 win = words.window(cur);
         int rs, alen;
-        tj_decode_symbol(win, s_tab, s_tab + 17, s_hv, rs, alen);
+        tj_decode_lookahead(win, s_lut, s_tab, s_tab + 17, s_hv, rs, alen);
         const int rr = rs >> 4, ds = rs & 15;
         const bool is_eob = ds == 0 && rr < 15;
         cur += alen + (ds > 0 ? 1 : (is_eob ? rr : 0));
         if (alen > 16 || ds > 1) err = TJ_ERR_BADCODE;
-        int kstop = se + 1, place = 0;
+        int kstop = se + 1;
+        bool place = false, place_neg = false;
         if (is_eob) {
           eob = (1 << rr) + tj_receive_raw(win, alen, rr);
         } else {
@@ -311,17 +325,19 @@ __global__ void __launch_bounds__(TJ_PROG_THREADS) prog_ac_refine_kernel(AcArgs 
           const int found = nth_set(~nz & band & (~0ull << k), ds > 0 ? rr + 1 : 16);
           if (found < 64) {
             kstop = found;
-            if (ds > 0) place = tj_receive_raw(win, alen, 1) ? p1 : m1;
+            place = ds > 0;
+            place_neg = tj_receive_raw(win, alen, 1) == 0;
           } else if (ds > 0) {
             err = TJ_ERR_RUN;
           }
         }
         if (err) break;
         const u64 below = kstop >= 64 ? ~0ull : (1ull << kstop) - 1ull;
-        changed |= refine_nonzeros(row, W, P, cur, cv, nz & below & (~0ull << k), p1);
+        hit |= refine_bits(words, cur, nz & below & (~0ull << k));
         if (place) {
-          cv[kstop] = (int)((u32)cv[kstop] + (u32)place);
-          changed = true;
+          // kstop was a zero of the band, never in nz: it takes +-p1.
+          placed |= 1ull << kstop;
+          if (place_neg) placed_neg |= 1ull << kstop;
         }
         k = kstop + 1;
         if (is_eob) {
@@ -331,10 +347,19 @@ __global__ void __launch_bounds__(TJ_PROG_THREADS) prog_ac_refine_kernel(AcArgs 
         if (k > se) break;
       }
     }
-    if (changed) {
+    // Corrections and placements made before an error are written too.
+    const u64 corr = hit & fix;
+    if (corr | placed) {
+#pragma unroll
+      for (int j = 0; j < 64; ++j) {
+        u32 x = (u32)v[j];
+        if ((corr >> j) & 1ull) x += (neg >> j) & 1ull ? (u32)-p1 : (u32)p1;
+        if ((placed >> j) & 1ull) x = (placed_neg >> j) & 1ull ? (u32)m1 : (u32)p1;
+        v[j] = (int)x;
+      }
 #pragma unroll
       for (int i = 0; i < 16; ++i)
-        blk[i] = make_int4(cv[4 * i], cv[4 * i + 1], cv[4 * i + 2], cv[4 * i + 3]);
+        blk[i] = make_int4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
     }
   }
   a.ln.err_out[lane] = lane_err(a.ln, lane, err, cur, lm);

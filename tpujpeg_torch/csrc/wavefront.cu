@@ -11,21 +11,31 @@
 // here each thread walks its own lane with data-dependent control flow,
 // reads its row of words from device memory, and takes the tables and
 // quantizer sets as runtime data staged in shared memory. The two emits
-// share one decode loop (decode_lane), templated on the epilogue, and
-// take the word load, window, symbol decode and EXTEND from common.cuh,
-// as the progressive kernels of prog.cu do. The reference's coefficient
-// emit needed an assembly pass of transposes after the kernel, which the
-// raster-index stores here make unnecessary.
+// share one decode loop (decode_lane), templated on the epilogue.
 //
-// What bounds them on the H100: the per-symbol dependency chain (window,
-// 16 maxcode compares, huffval lookup, cursor update) of each thread, and
-// warp divergence between lanes whose blocks hold different numbers of
-// symbols. Kernel A moves few bytes (the compressed rows plus the u8
-// planes); kernel 2 writes 256 bytes of coefficients per block, 16x the
-// pixels, but still spends its time in the chain. The design keeps
-// everything per lane in registers and local memory and never leaves a
-// lane's thread, so the only cost beyond the chain is the divergence;
-// reducing that (lane sorting, warp-cooperative decode) is later work.
+// What bounds them on the H100: each lane's serial chain of symbols
+// (about 477 per lane on the main path), the epilogue's integer work
+// (kernel A: about 1,400 operations per block) and, for kernel 2, the 256
+// bytes of coefficients it writes per block. Nothing a thread touches may
+// go to local memory: with about a thousand threads per SM, a 256-byte
+// block and a 256-byte IDCT workspace per thread outgrow L1, and their
+// traffic goes to L2. So:
+//  * a block's AC values are staged in shared memory, coefficient-major
+//    int16 [63][threads] (thread t's value k at (k - 1) * threads + t: no
+//    bank conflicts), with a 64-bit mask of the positions written in place
+//    of 64 zeroing stores; the epilogues read position k only through a
+//    compile-time k, as mask bit ? staged value : 0;
+//  * kernel A's epilogue dequantizes and runs both islow passes unrolled
+//    in registers (tj_idct_islow_store, kernel 6's too);
+//  * the window comes from a two-word register cache (TjWords) that loads
+//    one word when the cursor enters the next one;
+//  * a 9-bit lookahead table per Huffman table, built by each CTA from the
+//    tables it stages, decodes codes of up to 9 bits with one shared load;
+//    longer and invalid codes continue the maxcode walk at length 10.
+//    Blocks whose tables are equal share one staged copy (lut_of).
+//  * the block layout (blk, comp) and the table sharing come by value in
+//    the kernel's arguments, and the quantizers are read in zigzag order
+//    as the plan holds them, so a launch copies nothing to the card.
 //
 // Semantics follow the reference exactly, including on corrupt streams:
 //  * words past the row read row[w & (P-1)] when that index is < W, else
@@ -37,21 +47,17 @@
 //  * TRUNC (cursor past seg_bits + 7) is checked once, at the end, and
 //    ORed onto the lane's other bits;
 //  * dequant and IDCT arithmetic wraps modulo 2^32 like jnp's int32;
-//  * the reference keeps coefficient-mode AC values in 16-bit halves of an
-//    int32; AC sizes are at most 15, so each value fits and the full int32
-//    stored here is the same number.
+//  * AC sizes are at most 15, so every AC value fits the int16 staging
+//    (the reference keeps coefficient-mode AC values in 16-bit halves of
+//    an int32 too); the absolute DC predictor stays an int32 register.
 
 #include "common.cuh"
 
 #define TJ_MAX_B 10
+#define TJ_MAX_LUT 4
+#define TJ_WF_THREADS 128
 
-// ZIGZAG[k]: natural index of the k-th zigzag coefficient (T.81 A.6).
-static __constant__ int8_t kZigzag[64] = {
-    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
-    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
-    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
-    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
-};
+typedef unsigned long long u64;
 
 // Per scan component: u8 planes (kernel A) or int32 coefficient arrays
 // (kernel 2).
@@ -59,9 +65,6 @@ struct Outputs {
   void* p[4];
 };
 
-// Shared memory: tables [B][2][34] int, qsets [nq][B][64] int (natural
-// order, pixels only), blk [B][4] int, comp [n_planes][4] int, huffval
-// [B][2][256] u8.
 struct LaneArgs {
   const u32* bits;
   int W, P;
@@ -70,214 +73,321 @@ struct LaneArgs {
   const int* lane_q;
   const int* lane_meta;
   int L;
-  const int* tables;
-  const uint8_t* huffval;
-  const int* qsets;
-  const int* blk;
-  const int* comp;
-  int B, nq, n_planes, mcus_x;
+  const int* tables;       // [B][2][34] dc/ac maxcode | valoffset
+  const uint8_t* huffval;  // [B][2][256]
+  const int* qsets;        // [nq][B][64] zigzag order (pixels only)
+  int B, nq, n_planes, mcus_x, n_lut;
+  int blk[TJ_MAX_B][4];    // (ci, sp, dv, dh) of each block of an MCU
+  int comp[4][4];          // (h, v, plane_h, plane_w) per scan component
+  int lut_of[TJ_MAX_B];    // the staged table set of each block
+  int lut_src[TJ_MAX_LUT]; // a block whose tables are table set u
   int* err_out;
 };
 
+// Shared memory: stage int16 [63][threads], lut u16 [n_lut][2][512],
+// tab int [n_lut][68], q int [nq][B][64], blk int [B][4], comp int
+// [n_planes][4], lut_of int [B], hv u8 [n_lut][2][256].
 struct Smem {
+  int16_t* stage;
+  const uint16_t* lut;
   const int* tab;
   const int* q;
   const int* blk;
   const int* comp;
+  const int* lut_of;
   const uint8_t* hv;
-  const int8_t* zz;
 };
 
-__device__ __forceinline__ Smem stage_smem(const LaneArgs& a, int nq) {
-  extern __shared__ int smem[];
-  __shared__ int8_t s_zz[64];
-  int* s_tab = smem;
-  int* s_q = s_tab + a.B * 68;
-  int* s_blk = s_q + nq * a.B * 64;
-  int* s_comp = s_blk + a.B * 4;
-  uint8_t* s_hv = (uint8_t*)(s_comp + a.n_planes * 4);
-  for (int i = threadIdx.x; i < a.B * 68; i += blockDim.x) s_tab[i] = a.tables[i];
-  for (int i = threadIdx.x; i < nq * a.B * 64; i += blockDim.x) s_q[i] = a.qsets[i];
-  for (int i = threadIdx.x; i < a.B * 4; i += blockDim.x) s_blk[i] = a.blk[i];
-  for (int i = threadIdx.x; i < a.n_planes * 4; i += blockDim.x) s_comp[i] = a.comp[i];
-  for (int i = threadIdx.x; i < a.B * 512; i += blockDim.x) s_hv[i] = a.huffval[i];
-  for (int i = threadIdx.x; i < 64; i += blockDim.x) s_zz[i] = kZigzag[i];
-  __syncthreads();
-  return Smem{s_tab, s_q, s_blk, s_comp, s_hv, s_zz};
+static size_t smem_bytes(int B, int nq, int n_planes, int n_lut) {
+  return sizeof(int16_t) * 63 * TJ_WF_THREADS + sizeof(uint16_t) * n_lut * 1024 +
+         sizeof(int) * (n_lut * 68 + nq * B * 64 + B * 4 + n_planes * 4 + B) + n_lut * 512;
 }
 
-// Decode every block of one lane; for each, Epi::store(sm, lane, img, b,
-// my, mx, coef) gets the finished block: natural order when
-// Epi::kNatural, else zigzag, with coef[0] the absolute DC.
+// Stage the tables, quantizers and layout, then build the lookahead
+// tables from the staged ones. Every index into the argument arrays is a
+// compile-time constant.
+__device__ __forceinline__ Smem stage_smem(const LaneArgs& a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int16_t* s_stage = (int16_t*)smem_raw;
+  uint16_t* s_lut = (uint16_t*)(s_stage + 63 * TJ_WF_THREADS);
+  int* s_tab = (int*)(s_lut + a.n_lut * 1024);
+  int* s_q = s_tab + a.n_lut * 68;
+  int* s_blk = s_q + a.nq * a.B * 64;
+  int* s_comp = s_blk + a.B * 4;
+  int* s_lut_of = s_comp + a.n_planes * 4;
+  uint8_t* s_hv = (uint8_t*)(s_lut_of + a.B);
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int u = 0; u < TJ_MAX_LUT; ++u) {
+    if (u < a.n_lut) {
+      const int src = a.lut_src[u];
+      for (int i = tid; i < 68; i += blockDim.x) s_tab[u * 68 + i] = a.tables[src * 68 + i];
+      for (int i = tid; i < 512; i += blockDim.x) s_hv[u * 512 + i] = a.huffval[src * 512 + i];
+    }
+  }
+  for (int i = tid; i < a.nq * a.B * 64; i += blockDim.x) s_q[i] = a.qsets[i];
+  if (tid == 0) {
+#pragma unroll
+    for (int b = 0; b < TJ_MAX_B; ++b) {
+      if (b < a.B) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s_blk[b * 4 + j] = a.blk[b][j];
+        s_lut_of[b] = a.lut_of[b];
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      if (s < a.n_planes) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s_comp[s * 4 + j] = a.comp[s][j];
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < a.n_lut * 1024; i += blockDim.x) {
+    const int t = i >> 9;  // u * 2 + (0 dc, 1 ac)
+    const int* tb = s_tab + (t >> 1) * 68 + (t & 1) * 34;
+    s_lut[i] = tj_lookahead_entry(i & 511, tb, tb + 17, s_hv + t * 256);
+  }
+  __syncthreads();
+  return Smem{s_stage, s_lut, s_tab, s_q, s_blk, s_comp, s_lut_of, s_hv};
+}
+
+// Zigzag position k (1..63, a compile-time constant) of the staged block.
+__device__ __forceinline__ int staged(const int16_t* st, u64 nzm, int k) {
+  return (nzm >> k) & 1ull ? (int)st[(k - 1) * TJ_WF_THREADS] : 0;
+}
+
+// Decode every block of one lane; for each, Epi::store(sm, img, b, my,
+// mx, st, nzm, dc) gets the finished block: AC values staged at st (this
+// thread's column of the staging) where nzm has their bit, DC absolute.
 template <class Epi>
 __device__ __forceinline__ void decode_lane(const LaneArgs& a, const Smem& sm, const Epi& epi,
                                             int lane) {
-  const u32* row = a.bits + (size_t)lane * a.W;
-  const int W = a.W, P = a.P;
+  TjWords words(a.bits + (size_t)lane * a.W, a.W, a.P);
   const int img = a.lane_meta[lane * 3 + 0];
   const int first = a.lane_meta[lane * 3 + 1];
   const int lm = a.lane_m[lane];
+  int16_t* st = sm.stage + threadIdx.x;
 
   int cur = 0;
   int err = 0;
-  u32 pred[4] = {0u, 0u, 0u, 0u};
-  int coef[64];
+  u32 pred0 = 0u, pred1 = 0u, pred2 = 0u, pred3 = 0u;  // per frame component
 
   for (int m = 0; m < lm; ++m) {
     const int g = first + m;
     const int my = g / a.mcus_x;
     const int mx = g - my * a.mcus_x;
     for (int b = 0; b < a.B; ++b) {
-      const int* tb = sm.tab + b * 68;
-      const uint8_t* hv = sm.hv + b * 512;
+      const int u = sm.lut_of[b];
+      const int* tb = sm.tab + u * 68;
+      const uint8_t* hv = sm.hv + u * 512;
+      const uint16_t* lut = sm.lut + u * 1024;
       const int ci = sm.blk[b * 4 + 0];
-#pragma unroll
-      for (int i = 0; i < 64; ++i) coef[i] = 0;
+      u64 nzm = 0ull;
       u32 dc = 0u;
       if (err == 0) {
         // DC symbol, EXTEND, predictor.
-        u32 win = tj_window(row, cur, W, P);
+        u32 win = words.window(cur);
         int t, dlen;
-        tj_decode_symbol(win, tb, tb + 17, hv, t, dlen);
+        tj_decode_lookahead(win, lut, tb, tb + 17, hv, t, dlen);
         const bool bad = dlen > 16 || t > 15;
         if (t > 15) t = 0;
-        pred[ci] += (u32)tj_receive_extend(win, dlen, t);
+        u32 p = ci == 0 ? pred0 : (ci == 1 ? pred1 : (ci == 2 ? pred2 : pred3));
+        p += (u32)tj_receive_extend(win, dlen, t);
+        pred0 = ci == 0 ? p : pred0;
+        pred1 = ci == 1 ? p : pred1;
+        pred2 = ci == 2 ? p : pred2;
+        pred3 = ci >= 3 ? p : pred3;
         cur += dlen + t;
         if (bad) err = TJ_ERR_BADCODE;
         // AC symbols until EOB, k = 64 or an error.
         int k = 1;
         while (k < 64 && err == 0) {
-          win = tj_window(row, cur, W, P);
+          win = words.window(cur);
           int rs, alen;
-          tj_decode_symbol(win, tb + 34, tb + 51, hv + 256, rs, alen);
+          tj_decode_lookahead(win, lut + 512, tb + 34, tb + 51, hv + 256, rs, alen);
           const int run = rs >> 4, size = rs & 15;
           const int val = tj_receive_extend(win, alen, size);
           const int nk = k + (size > 0 ? run : 0);
-          if (size > 0 && nk <= 63) coef[Epi::kNatural ? sm.zz[nk] : nk] = val;
+          if (size > 0 && nk <= 63) {
+            st[(nk - 1) * TJ_WF_THREADS] = (int16_t)val;
+            nzm |= 1ull << nk;
+          }
           cur += alen + size;
           if (alen > 16) err = TJ_ERR_BADCODE;
           if (size > 0 && nk > 63) err = TJ_ERR_RUN;
           k = size > 0 ? nk + 1 : (run != 15 ? 64 : k + 16);
         }
-        dc = pred[ci];
+        dc = p;
       }
-      coef[0] = (int)dc;
-      epi.store(sm, lane, img, b, my, mx, coef);
+      epi.store(sm, img, b, my, mx, st, nzm, dc);
     }
   }
   const bool trunc = cur > a.seg_bits[lane] + 7 && lm > 0;
   a.err_out[lane] = err | (trunc ? TJ_ERR_TRUNC : 0);
 }
 
-// The block's (plane or coefficient array, block row, block column).
-__device__ __forceinline__ void block_place(const Smem& sm, int b, int my, int mx, int& sp,
-                                            int& brow, int& bcol) {
+// The block's output (plane or coefficient array), block row and column.
+__device__ __forceinline__ void* block_place(const Smem& sm, const Outputs& out, int b, int my,
+                                             int mx, int& sp, int& brow, int& bcol) {
   sp = sm.blk[b * 4 + 1];
   const int dv = sm.blk[b * 4 + 2], dh = sm.blk[b * 4 + 3];
   const int h = sm.comp[sp * 4 + 0], v = sm.comp[sp * 4 + 1];
   brow = my * v + dv;
   bcol = mx * h + dh;
+  return sp == 0 ? out.p[0] : (sp == 1 ? out.p[1] : (sp == 2 ? out.p[2] : out.p[3]));
 }
 
-// Kernel A's epilogue: dequant (natural order) + islow IDCT, u8 samples
-// into planes[sp][img] at the block's raster position.
+// Kernel A's epilogue: dequant + islow IDCT in registers, u8 samples into
+// planes[sp][img] at the block's raster position.
 struct PixelsEpi {
-  static constexpr bool kNatural = true;
   Outputs planes;
   int B;
   int lane_qset;
-  __device__ __forceinline__ void store(const Smem& sm, int lane, int img, int b, int my, int mx,
-                                        int* coef) const {
-    const int* q = sm.q + (size_t)lane_qset * B * 64 + b * 64;
-#pragma unroll
-    for (int i = 0; i < 64; ++i) coef[i] = (int)((u32)coef[i] * (u32)q[i]);
+  __device__ __forceinline__ void store(const Smem& sm, int img, int b, int my, int mx,
+                                        const int16_t* st, u64 nzm, u32 dc) const {
+    const int* q = sm.q + (lane_qset * B + b) * 64;  // zigzag order
     int sp, brow, bcol;
-    block_place(sm, b, my, mx, sp, brow, bcol);
+    uint8_t* plane = (uint8_t*)block_place(sm, planes, b, my, mx, sp, brow, bcol);
     const int ph = sm.comp[sp * 4 + 2], pw = sm.comp[sp * 4 + 3];
-    uint8_t* dst = (uint8_t*)planes.p[sp] + ((size_t)img * ph + (size_t)brow * 8) * pw +
-                   (size_t)bcol * 8;
+    uint8_t* dst = plane + ((size_t)img * ph + (size_t)brow * 8) * pw + (size_t)bcol * 8;
+    auto coef = [&](int n) -> int {
+      const int k = tj_natural_to_zigzag(n);
+      const u32 c = k == 0 ? dc : (u32)staged(st, nzm, k);
+      return (int)(c * (u32)q[k]);
+    };
     tj_idct_islow_store(coef, dst, (size_t)pw);
   }
 };
 
 // Kernel 2's epilogue: the zigzag block, DC absolute, into
-// coeff[sp][img, brow * padded_wb + bcol, :].
+// coeff[sp][img, brow * padded_wb + bcol, :] as 16 int4 words.
 struct CoeffEpi {
-  static constexpr bool kNatural = false;
   Outputs coeff;
-  __device__ __forceinline__ void store(const Smem& sm, int, int img, int b, int my, int mx,
-                                        int* coef) const {
+  __device__ __forceinline__ void store(const Smem& sm, int img, int b, int my, int mx,
+                                        const int16_t* st, u64 nzm, u32 dc) const {
     int sp, brow, bcol;
-    block_place(sm, b, my, mx, sp, brow, bcol);
+    int* base = (int*)block_place(sm, coeff, b, my, mx, sp, brow, bcol);
     const int phb = sm.comp[sp * 4 + 2] >> 3, pwb = sm.comp[sp * 4 + 3] >> 3;
-    int4* dst = (int4*)((int*)coeff.p[sp] +
-                        (((size_t)img * phb + brow) * pwb + bcol) * 64);
+    int4* dst = (int4*)(base + (((size_t)img * phb + brow) * pwb + bcol) * 64);
 #pragma unroll
-    for (int i = 0; i < 16; ++i)
-      dst[i] = make_int4(coef[4 * i], coef[4 * i + 1], coef[4 * i + 2], coef[4 * i + 3]);
+    for (int i = 0; i < 16; ++i) {
+      int c[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int k = 4 * i + j;
+        c[j] = k == 0 ? (int)dc : staged(st, nzm, k);
+      }
+      dst[i] = make_int4(c[0], c[1], c[2], c[3]);
+    }
   }
 };
 
-__global__ void wavefront_pixels_kernel(LaneArgs a, Outputs planes) {
-  const Smem sm = stage_smem(a, a.nq);
+__global__ void __launch_bounds__(TJ_WF_THREADS) wavefront_pixels_kernel(LaneArgs a,
+                                                                         Outputs planes) {
+  const Smem sm = stage_smem(a);
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= a.L) return;
   PixelsEpi epi{planes, a.B, a.lane_q[lane]};
   decode_lane(a, sm, epi, lane);
 }
 
-__global__ void wavefront_coeff_kernel(LaneArgs a, Outputs coeff) {
-  const Smem sm = stage_smem(a, 0);
+__global__ void __launch_bounds__(TJ_WF_THREADS) wavefront_coeff_kernel(LaneArgs a,
+                                                                        Outputs coeff) {
+  const Smem sm = stage_smem(a);
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= a.L) return;
   CoeffEpi epi{coeff};
   decode_lane(a, sm, epi, lane);
 }
 
+// blk ([B][4]), comp ([n_planes][4]) and lut_of ([B]) are host int32
+// arrays, read here into the kernel's arguments; every other pointer is a
+// device pointer.
 static int launch(bool pixels, const void* bits, int W, int P, const void* seg_bits,
                   const void* lane_m, const void* lane_q, const void* lane_meta, int L,
-                  const void* tables, const void* huffval, const void* qsets, const void* blk,
-                  const void* comp, int B, int nq, int n_planes, int mcus_x, void* p0, void* p1,
-                  void* p2, void* p3, void* err, void* stream) {
+                  const void* tables, const void* huffval, const void* qsets, const int* blk,
+                  const int* comp, const int* lut_of, int B, int nq, int n_planes, int mcus_x,
+                  void* p0, void* p1, void* p2, void* p3, void* err, void* stream) {
   if (L <= 0) return (int)cudaSuccess;
   if (B <= 0 || B > TJ_MAX_B || (pixels && nq <= 0) || n_planes <= 0 || n_planes > 4 ||
-      (P & (P - 1)))
+      mcus_x <= 0 || W <= 0 || P < W || (P & (P - 1)))
     return (int)cudaErrorInvalidValue;
   if (!pixels) nq = 0;
-  LaneArgs a{(const u32*)bits, W, P, (const int*)seg_bits, (const int*)lane_m,
-             (const int*)lane_q, (const int*)lane_meta, L, (const int*)tables,
-             (const uint8_t*)huffval, (const int*)qsets, (const int*)blk, (const int*)comp,
-             B, nq, n_planes, mcus_x, (int*)err};
+  LaneArgs a{};
+  a.bits = (const u32*)bits;
+  a.W = W;
+  a.P = P;
+  a.seg_bits = (const int*)seg_bits;
+  a.lane_m = (const int*)lane_m;
+  a.lane_q = (const int*)lane_q;
+  a.lane_meta = (const int*)lane_meta;
+  a.L = L;
+  a.tables = (const int*)tables;
+  a.huffval = (const uint8_t*)huffval;
+  a.qsets = (const int*)qsets;
+  a.B = B;
+  a.nq = nq;
+  a.n_planes = n_planes;
+  a.mcus_x = mcus_x;
+  a.err_out = (int*)err;
+  for (int u = 0; u < TJ_MAX_LUT; ++u) a.lut_src[u] = -1;
+  for (int b = 0; b < B; ++b) {
+    for (int j = 0; j < 4; ++j) a.blk[b][j] = blk[b * 4 + j];
+    const int u = lut_of[b];
+    if (a.blk[b][0] < 0 || a.blk[b][0] > 3 || a.blk[b][1] < 0 || a.blk[b][1] >= n_planes ||
+        u < 0 || u >= TJ_MAX_LUT)
+      return (int)cudaErrorInvalidValue;
+    a.lut_of[b] = u;
+    if (a.lut_src[u] < 0) a.lut_src[u] = b;
+    if (u + 1 > a.n_lut) a.n_lut = u + 1;
+  }
+  for (int u = 0; u < a.n_lut; ++u)
+    if (a.lut_src[u] < 0) return (int)cudaErrorInvalidValue;
+  for (int s = 0; s < n_planes; ++s)
+    for (int j = 0; j < 4; ++j) a.comp[s][j] = comp[s * 4 + j];
   Outputs out = {{p0, p1, p2, p3}};
-  const size_t smem = sizeof(int) * (B * 68 + nq * B * 64 + B * 4 + n_planes * 4) + B * 512;
-  const int threads = 128;
-  const int blocks = (L + threads - 1) / threads;
-  if (pixels)
-    wavefront_pixels_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(a, out);
-  else
-    wavefront_coeff_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(a, out);
+  const size_t smem = smem_bytes(B, nq, n_planes, a.n_lut);
+  const int blocks = (L + TJ_WF_THREADS - 1) / TJ_WF_THREADS;
+  if (pixels) {
+    if (smem > 48 * 1024)
+      cudaFuncSetAttribute(wavefront_pixels_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+    wavefront_pixels_kernel<<<blocks, TJ_WF_THREADS, smem, (cudaStream_t)stream>>>(a, out);
+  } else {
+    if (smem > 48 * 1024)
+      cudaFuncSetAttribute(wavefront_coeff_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+    wavefront_coeff_kernel<<<blocks, TJ_WF_THREADS, smem, (cudaStream_t)stream>>>(a, out);
+  }
   return (int)cudaGetLastError();
 }
 
+// Kernel A. qsets: int32 [nq][B][64] zigzag-order quantizer sets, lane_q
+// each lane's set; p0..p3: u8 [N, plane_h, plane_w] planes of the scan's
+// components.
 extern "C" int tj_wavefront_pixels(const void* bits, int W, int P, const void* seg_bits,
                                    const void* lane_m, const void* lane_q,
                                    const void* lane_meta, int L, const void* tables,
-                                   const void* huffval, const void* qsets, const void* blk,
-                                   const void* comp, int B, int nq, int n_planes, int mcus_x,
-                                   void* p0, void* p1, void* p2, void* p3, void* err,
-                                   void* stream) {
+                                   const void* huffval, const void* qsets, const int* blk,
+                                   const int* comp, const int* lut_of, int B, int nq,
+                                   int n_planes, int mcus_x, void* p0, void* p1, void* p2,
+                                   void* p3, void* err, void* stream) {
   return launch(true, bits, W, P, seg_bits, lane_m, lane_q, lane_meta, L, tables, huffval, qsets,
-                blk, comp, B, nq, n_planes, mcus_x, p0, p1, p2, p3, err, stream);
+                blk, comp, lut_of, B, nq, n_planes, mcus_x, p0, p1, p2, p3, err, stream);
 }
 
 // Kernel 2: as tj_wavefront_pixels without quantizers; c0..c3 are the
 // int32 [N, padded_hb * padded_wb, 64] coefficient arrays of the scan's
-// components (comp's plane_h and plane_w are 8x the padded block grid).
+// components (comp's plane_h and plane_w are 8x the padded block grid),
+// each on a 16-byte boundary.
 extern "C" int tj_wavefront_coeff(const void* bits, int W, int P, const void* seg_bits,
                                   const void* lane_m, const void* lane_meta, int L,
-                                  const void* tables, const void* huffval, const void* blk,
-                                  const void* comp, int B, int n_planes, int mcus_x, void* c0,
-                                  void* c1, void* c2, void* c3, void* err, void* stream) {
+                                  const void* tables, const void* huffval, const int* blk,
+                                  const int* comp, const int* lut_of, int B, int n_planes,
+                                  int mcus_x, void* c0, void* c1, void* c2, void* c3, void* err,
+                                  void* stream) {
   return launch(false, bits, W, P, seg_bits, lane_m, nullptr, lane_meta, L, tables, huffval,
-                nullptr, blk, comp, B, 0, n_planes, mcus_x, c0, c1, c2, c3, err, stream);
+                nullptr, blk, comp, lut_of, B, 0, n_planes, mcus_x, c0, c1, c2, c3, err, stream);
 }

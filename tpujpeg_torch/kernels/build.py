@@ -10,8 +10,11 @@ it is given and returns ``cudaGetLastError()``; ``raise_on_error`` turns
 a non-zero code into an exception. Pointers and the stream go in as
 ``c_void_p``.
 
-Module state is the library handle and ``LAUNCHES``, the per-kernel
-launch counters the wrappers bump after each launch.
+Every nvcc runs with ``-Xptxas -v`` (in ``FLAGS``); its report (registers, stack and
+spill bytes per kernel) is parsed and saved beside the library
+(``ptxas_report``). Module state is the library handle and
+``LAUNCHES``, the per-kernel launch counters the wrappers bump after
+each launch.
 """
 
 from __future__ import annotations
@@ -20,11 +23,13 @@ import collections
 import ctypes
 import glob
 import hashlib
+import json
 import os
+import re
 import shutil
 import subprocess
 import threading
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -32,7 +37,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
-FLAGS = [ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+FLAGS = [ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
 
@@ -48,8 +53,9 @@ _SIGNATURES = {
     "tj_wavefront_pixels": [
         _P, _I, _I,              # bits, W, P
         _P, _P, _P, _P, _I,      # seg_bits, lane_m, lane_qset, lane_meta, L
-        _P, _P, _P,              # tables, huffval, qsets (natural order)
-        _P, _P, _I, _I, _I, _I,  # blk, comp, B, nq, n_planes, mcus_x
+        _P, _P, _P,              # tables, huffval, qsets (zigzag order)
+        _P, _P, _P,              # blk, comp, table set per block (host)
+        _I, _I, _I, _I,          # B, nq, n_planes, mcus_x
         _P, _P, _P, _P,          # planes 0..3
         _P, _P,                  # err, stream
     ],
@@ -57,7 +63,8 @@ _SIGNATURES = {
         _P, _I, _I,              # bits, W, P
         _P, _P, _P, _I,          # seg_bits, lane_m, lane_meta, L
         _P, _P,                  # tables, huffval
-        _P, _P, _I, _I, _I,      # blk, comp, B, n_planes, mcus_x
+        _P, _P, _P,              # blk, comp, table set per block (host)
+        _I, _I, _I,              # B, n_planes, mcus_x
         _P, _P, _P, _P,          # coefficient arrays 0..3
         _P, _P,                  # err, stream
     ],
@@ -121,29 +128,75 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libtpujpeg_torch_{h.hexdigest()[:16]}.so")
 
 
+def _entry_name(symbol: str) -> str:
+    """A kernel's name from its mangled symbol (_Z23wavefront_pixels_kernel8...)."""
+    m = re.match(r"_Z(\d+)", symbol)
+    return symbol[m.end():m.end() + int(m.group(1))] if m else symbol
+
+
+def parse_ptxas(text: str) -> Dict[str, Dict[str, int]]:
+    """Per kernel, {registers, stack, spill_stores, spill_loads} (bytes
+    but for registers) from nvcc -Xptxas -v output. Device functions
+    that were not inlined have properties but no entry; they are left
+    out."""
+    report: Dict[str, Dict[str, int]] = {}
+    entry = props = None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = _entry_name(m.group(1))
+            report[entry] = {}
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = _entry_name(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and props in report:
+            report[props].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                                 spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry in report:
+            report[entry]["registers"] = int(m.group(1))
+    return report
+
+
+def ptxas_report() -> Optional[Dict[str, Dict[str, int]]]:
+    """The -Xptxas -v report of the library's build (parse_ptxas's form),
+    saved beside it; None when the library was not built here."""
+    path = library_path() + ".ptxas.json"
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f)
+
+
 def build(verbose: bool = False) -> str:
     """Compile csrc/*.cu into the library if it is not built yet; returns
-    its path. With verbose, nvcc's -Xptxas -v report (registers, shared
-    memory, spills per kernel) is printed."""
+    its path. nvcc's -Xptxas -v report (registers, stack and spills per
+    kernel) is parsed into ``ptxas_report()``; with verbose it is also
+    printed."""
     so = library_path()
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tag = f"{os.path.basename(so)[:-3]}.{os.getpid()}"
-    ptxas = ["-Xptxas", "-v"] if verbose else []
     objs, procs = [], []
     for src in [s for s in _sources() if s.endswith(".cu")]:
         obj = os.path.join(BUILD_DIR, f"{tag}.{os.path.basename(src)}.o")
-        cmd = [_nvcc(), *FLAGS, *ptxas, "-c", "-o", obj, src]
+        cmd = [_nvcc(), *FLAGS, "-c", "-o", obj, src]
         procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT, text=True)))
         objs.append(obj)
     tmp = f"{so}.tmp{os.getpid()}"
+    report: Dict[str, Dict[str, int]] = {}
     try:
         for cmd, proc in procs:
             out = proc.communicate()[0]
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{out}")
+            report.update(parse_ptxas(out))
             if verbose:
                 print(out)
         cmd = [_nvcc(), ARCH, "-shared", "-o", tmp, *objs]
@@ -158,9 +211,11 @@ def build(verbose: bool = False) -> str:
         for obj in objs:
             if os.path.exists(obj):
                 os.unlink(obj)
+    with open(so + ".ptxas.json", "w") as f:
+        json.dump(report, f)
     os.replace(tmp, so)
-    for old in glob.glob(os.path.join(BUILD_DIR, "libtpujpeg_torch_*.so")):
-        if old != so:
+    for old in glob.glob(os.path.join(BUILD_DIR, "libtpujpeg_torch_*.so*")):
+        if not old.startswith(so):
             try:
                 os.unlink(old)
             except OSError:

@@ -8,7 +8,8 @@ Port of the restart-segment part of
 (``failures_from_err``/``resolve_rgb_errors``), the
 ``_make_kernel`` Pallas kernel with ``emit="pixels"`` and
 ``emit="coeff"``, which become the CUDA kernels ``tj_wavefront_pixels``
-and ``tj_wavefront_coeff`` in ``csrc/wavefront.cu``, and the coefficient
+and ``tj_wavefront_coeff`` in ``csrc/wavefront.cu`` (``lookahead_table``
+is the plain form of their 9-bit lookahead rule), and the coefficient
 entries ``decode_batch_to_coeffs`` (the batch layout kernel 6 takes),
 ``decode_batch_to_device`` (the reference's per-image split of it),
 ``decode_multiscan_to_device`` and ``decode_all_scans``, the wavefront
@@ -482,6 +483,28 @@ def _decode_symbol(win: torch.Tensor, mc, vo, huffval: torch.Tensor):
     return huffval[idx.clamp(0, 255)], length
 
 
+LOOKAHEAD_BITS = 9
+
+
+def lookahead_table(table: CanonTable) -> torch.Tensor:
+    """Kernels A, 2 and 9's 9-bit lookahead for one Huffman table (the rule
+    of ``tj_lookahead_entry``, csrc/common.cuh), int32 [512]: entry p, for
+    a window whose top nine bits are p, is (length << 8) | symbol for the
+    shortest length l <= 9 whose maxcode admits the window's l-bit prefix
+    (the symbol index clamped to 0..255, as ``_decode_symbol`` clamps it),
+    else 0: the decode then walks the maxcodes from length 10."""
+    p = torch.arange(1 << LOOKAHEAD_BITS, dtype=torch.int64)
+    hv = torch.tensor(table.huffval, dtype=torch.int64)
+    out = torch.zeros_like(p)
+    for l in range(LOOKAHEAD_BITS, 0, -1):
+        if table.maxcode[l] < 0:
+            continue
+        peek = p >> (LOOKAHEAD_BITS - l)
+        sym = hv[(peek + table.valoffset[l]).clamp(0, 255)]
+        out = torch.where(peek <= table.maxcode[l], (l << 8) | sym, out)
+    return out.to(torch.int32)
+
+
 def decode_lanes_plain(plan: LanePlan, layout: PlaneLayout, outs: Sequence[torch.Tensor],
                        err: torch.Tensor, emit: str = "pixels") -> None:
     """Kernels A and 2's plain torch version on the plan's device: all
@@ -575,15 +598,25 @@ def decode_lanes_plain(plan: LanePlan, layout: PlaneLayout, outs: Sequence[torch
 # ---------------------------------------------------------------------------
 
 
+def table_sets(blk_tables) -> Tuple[int, ...]:
+    """The staged table set of each block position: the kernels stage one
+    copy of each distinct (dc, ac) table pair, and blocks whose pairs are
+    equal (the blocks of one component) share it."""
+    seen: Dict[Tuple[CanonTable, CanonTable], int] = {}
+    return tuple(seen.setdefault((dct, act), len(seen)) for _ci, dct, act in blk_tables)
+
+
 def _launch_wavefront(plan: LanePlan, layout: PlaneLayout, outs: Sequence[torch.Tensor],
                       err: torch.Tensor, emit: str = "pixels") -> None:
+    """Launch kernel A (emit "pixels") or 2 ("coeff"). The layout and the
+    table sets go by value in the kernel's arguments and the quantizers
+    stay in the plan's zigzag order, so nothing is copied to the card and
+    the launch never waits for the stream."""
     lib = build.get_lib()
     dev = plan.bits.device
     B = plan.blocks_per_mcu
     nq = int(plan.qsets.shape[0])
     name = "wavefront_" + emit
-    blk = torch.tensor(layout.blk, dtype=torch.int32, device=dev)
-    comp = torch.tensor(layout.comp, dtype=torch.int32, device=dev)
     ptrs = [o.data_ptr() for o in outs] + [0] * (4 - len(outs))
     out_spec = (torch.uint8, 3) if emit == "pixels" else (torch.int32, 3)
     build.check_args(
@@ -591,24 +624,28 @@ def _launch_wavefront(plan: LanePlan, layout: PlaneLayout, outs: Sequence[torch.
         [(plan.bits, torch.int32, 2), (plan.seg_bits, torch.int32, 1),
          (plan.lane_m, torch.int32, 1), (plan.lane_qset, torch.int32, 1),
          (plan.lane_meta, torch.int32, 2), (plan.tables, torch.int32, 3),
-         (plan.huffval, torch.uint8, 3), (err, torch.int32, 1)]
+         (plan.huffval, torch.uint8, 3), (plan.qsets, torch.int32, 3), (err, torch.int32, 1)]
         + [(o, *out_spec) for o in outs],
     )
-    if B > 10 or len(outs) > 4 or (emit == "pixels" and nq > MAX_QSETS):
-        raise ValueError(f"{name}: B={B}, nq={nq}, outputs={len(outs)} out of range")
+    sets = table_sets(plan.blk_tables)
+    if (B > 10 or len(layout.blk) != B or len(outs) > 4 or max(sets) >= 4
+            or (emit == "pixels" and nq > MAX_QSETS)):
+        raise ValueError(f"{name}: B={B}, nq={nq}, outputs={len(outs)}, "
+                         f"table sets={max(sets) + 1} out of range")
     if emit == "coeff":
         build.check_aligned(name, outs)  # each block is stored as 16 int4
+    blk = np.ascontiguousarray(layout.blk, dtype=np.int32)
+    comp = np.ascontiguousarray(layout.comp, dtype=np.int32)
+    lut_of = np.asarray(sets, dtype=np.int32)
     L, W = plan.bits.shape
     P = 1 << max(W - 1, 1).bit_length()
     if emit == "pixels":
-        # Quantizers in natural order: the kernel keeps each block natural.
-        q_nat = plan.qsets[:, :, T.NATURAL_TO_ZIGZAG.to(dev)].contiguous()
         rc = lib.tj_wavefront_pixels(
             plan.bits.data_ptr(), W, P,
             plan.seg_bits.data_ptr(), plan.lane_m.data_ptr(), plan.lane_qset.data_ptr(),
             plan.lane_meta.data_ptr(), L,
-            plan.tables.data_ptr(), plan.huffval.data_ptr(), q_nat.data_ptr(),
-            blk.data_ptr(), comp.data_ptr(), B, nq, len(outs), layout.mcus_x,
+            plan.tables.data_ptr(), plan.huffval.data_ptr(), plan.qsets.data_ptr(),
+            blk.ctypes.data, comp.ctypes.data, lut_of.ctypes.data, B, nq, len(outs), layout.mcus_x,
             *ptrs, err.data_ptr(), build.stream_of(dev),
         )
     else:
@@ -616,7 +653,7 @@ def _launch_wavefront(plan: LanePlan, layout: PlaneLayout, outs: Sequence[torch.
             plan.bits.data_ptr(), W, P,
             plan.seg_bits.data_ptr(), plan.lane_m.data_ptr(), plan.lane_meta.data_ptr(), L,
             plan.tables.data_ptr(), plan.huffval.data_ptr(),
-            blk.data_ptr(), comp.data_ptr(), B, len(outs), layout.mcus_x,
+            blk.ctypes.data, comp.ctypes.data, lut_of.ctypes.data, B, len(outs), layout.mcus_x,
             *ptrs, err.data_ptr(), build.stream_of(dev),
         )
     build.raise_on_error(rc, name)

@@ -1,0 +1,201 @@
+#!/usr/bin/env python3
+"""Time the lane kernels of one or more checkouts on one card, in turns.
+
+    python3 tpujpeg_torch/tools/kernel_ab.py --tree _parent --tree . --order 0,1,1,0
+
+Each entry of --order runs one process on the tpujpeg_torch package of
+--tree[i] (its kernels built there at first use) and times, on the
+inputs chip_smoke.py times them on: kernels A and 2 on the plan of 32
+copies of the 420_2048 fixture (mean of --reps back-to-back launches
+after a warm-up), kernel 6 on kernel 2's coefficients, and kernels 7, 8
+and 9 summed over the scans of their kind on 32 copies of prog_rst_2048
+(kernels 7 and 8, whose work does not depend on the state, as --reps
+back-to-back launches; kernel 9 --reps times from the scan's own input
+state). It uses only entry
+points that every checkout since the progressive kernels has.
+
+Each process prints one JSON line: its tree, the ms per kernel, nvcc's
+-Xptxas -v report of the build, and a SHA-256 digest of each kernel's
+output (kernel A's planes, kernel 2's coefficients, the progressive
+state after all scans). The driver checks that the digests of every
+tree agree, then prints the card's name and power limit and one summary
+line (per tree, per kernel: every run's ms and their median), and writes
+all of it to --out. Needs a CUDA card and nvcc; exits non-zero without.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import hashlib
+import io
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+BATCH = 32
+
+
+def _digest(tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def run_one(tree: str, reps: int) -> dict:
+    """Time the kernels of `tree`'s package in this process."""
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    import torch
+
+    import tpujpeg_torch
+    from tpujpeg_torch.kernels import build, idct
+    from tpujpeg_torch.kernels import wavefront as wf
+    from tpujpeg_torch.kernels import wavefront_prog as wp
+
+    if not os.path.abspath(tpujpeg_torch.__file__).startswith(tree + os.sep):
+        raise RuntimeError(f"imported {tpujpeg_torch.__file__}, not the package of {tree}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device")
+    dev = torch.device("cuda", 0)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        build.build(verbose=True)
+    build.get_lib()
+    fixtures = os.path.join(tree, "tpujpeg_torch", "fixtures")
+
+    def parsed(name):
+        with open(os.path.join(fixtures, name + ".jpg"), "rb") as f:
+            data = f.read()
+        return [tpujpeg_torch.bitstream.parse(data) for _ in range(BATCH)]
+
+    def cuda_ms(fn):
+        fn()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    ms, digests = {}, {}
+    jpegs = parsed("420_2048")
+    plan = wf.build_block_plan(jpegs).to(dev)
+    layout = wf.PlaneLayout.of(wf.ImageGeom.of(jpegs[0]))
+    err = torch.zeros(plan.n_lanes, dtype=torch.int32, device=dev)
+    planes = layout.alloc(BATCH, dev)
+    ms["wavefront_pixels"] = cuda_ms(lambda: wf._launch_wavefront(plan, layout, planes, err))
+    digests["wavefront_pixels"] = _digest(planes + [err])
+    coeffs = layout.alloc(BATCH, dev, "coeff")
+    ms["wavefront_coeff"] = cuda_ms(lambda: wf._launch_wavefront(plan, layout, coeffs, err, "coeff"))
+    digests["wavefront_coeff"] = _digest(coeffs + [err])
+    frame = jpegs[0].frame
+    qtabs = [torch.from_numpy(jpegs[0].qtables[c.tq].astype("int32")).to(dev) for c in frame.components]
+    ms["dequant_idct_islow"] = cuda_ms(lambda: [
+        idct.dequant_idct_islow(c, q, fc.padded_hb, fc.padded_wb)
+        for c, q, fc in zip(coeffs, qtabs, frame.components)])
+    del planes, coeffs
+
+    pjpegs = parsed("prog_rst_2048")
+    acs, dcs = wp.new_state(pjpegs[0].frame, BATCH, dev)
+    kernel = {"dc_first": "prog_dc_first", "ac_first": "prog_ac_first", "ac_refine": "prog_ac_refine"}
+    for k in kernel.values():
+        ms[k] = 0.0
+    for step in wp.plan_scans(pjpegs):
+        if isinstance(step, wp.DcRefine):
+            wp.apply_step(step, acs, dcs)
+            continue
+        step = step.to(dev)
+        target = dcs if step.kind == "dc_first" else [acs[step.comp_indices[0]]]
+        before = [t.clone() for t in target]
+        serr = torch.zeros(step.n_lanes, dtype=torch.int32, device=dev)
+        if step.kind != "ac_refine":
+            # Kernels 7 and 8 do the same work from any state (7 stores,
+            # 8 adds), so their launches are timed back to back.
+            launch = (lambda: wp.dc_first(step, target, serr)) if step.kind == "dc_first" else (
+                lambda: wp.ac_first(step, target[0], serr))
+            ms[kernel[step.kind]] += cuda_ms(launch)
+            for t, b in zip(target, before):
+                t.copy_(b)
+            launch()
+            continue
+        times = []
+        for _ in range(reps):
+            for t, b in zip(target, before):
+                t.copy_(b)
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            wp.ac_refine(step, target[0], serr)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        if serr.any():
+            raise RuntimeError(f"{kernel[step.kind]}: error bits on a clean stream")
+        ms[kernel[step.kind]] += statistics.mean(times)
+    digests["progressive_state"] = _digest(acs + dcs)
+    return dict(tree=tree, ms=ms, digests=digests, ptxas_text=out.getvalue(),
+                device=torch.cuda.get_device_name(0))
+
+
+def nvidia_smi() -> str:
+    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    return res.stdout.strip().splitlines()[0] if res.returncode == 0 else f"nvidia-smi failed: {res.stderr}"
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", action="append", help="checkout root (repeatable); default: this one")
+    ap.add_argument("--order", default=None, help="comma-separated tree indices, e.g. 0,1,1,0")
+    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--out", default=None, help="write every line here too")
+    ap.add_argument("--one", default=None, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.one:
+        print(json.dumps(run_one(args.one, args.reps)), flush=True)
+        return 0
+
+    trees = args.tree or [os.path.dirname(os.path.dirname(HERE))]
+    order = [int(i) for i in args.order.split(",")] if args.order else list(range(len(trees)))
+    lines, runs = [], []
+    for i in order:
+        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", trees[i],
+                              "--reps", str(args.reps)], capture_output=True, text=True)
+        if res.returncode != 0:
+            print(res.stdout, res.stderr, file=sys.stderr)
+            return 1
+        run = json.loads(res.stdout.strip().splitlines()[-1])
+        run["label"] = trees[i]
+        runs.append(run)
+        lines.append(json.dumps({k: v for k, v in run.items() if k != "ptxas_text"}))
+        print(lines[-1], flush=True)
+    sys.path.insert(0, os.path.dirname(os.path.dirname(HERE)))
+    from tpujpeg_torch.kernels import build
+
+    summary = {}
+    for run in runs:
+        s = summary.setdefault(run["label"], {"ms": {}, "ptxas": {}})
+        for k, v in run["ms"].items():
+            s["ms"].setdefault(k, []).append(v)
+        s["ptxas"].update(build.parse_ptxas(run["ptxas_text"]))
+    for s in summary.values():
+        s["median_ms"] = {k: statistics.median(v) for k, v in s["ms"].items()}
+    agree = all(run["digests"] == runs[0]["digests"] for run in runs)
+    lines += [nvidia_smi(), json.dumps({"summary": summary, "digests_agree": agree})]
+    print("\n".join(lines[-2:]), flush=True)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return 0 if agree else 2
+
+
+if __name__ == "__main__":
+    sys.exit(main())
