@@ -25,7 +25,12 @@ of tpujpeg/. Phases, one JSON line each:
    And the planar 4:2:0 and 4:2:2 kernels (the packed16 layout) against
    their plain versions on the 4:2:0/4:2:2 fixtures at batch 2 (an odd
    width cropped to even, after the wrapper refused it) and on random
-   planes with even widths and odd heights.
+   planes with even widths and odd heights. And kernels A and 2 with
+   their start state (bit0, dc0) on the norst plans of the marker-free
+   2048x2048 fixture and of rst_rows_420 (restart segments over the row
+   cap), batch 1: planes, coefficients and error bits equal the plain
+   versions', kernel 6 on kernel 2's coefficients gives kernel A's
+   planes, and the RGB hashes to PIL's.
 4. main_path: decode_batch_to_rgb of 32 copies of the 2048x2048 q85
    4:2:0 fixture (restart every 4 MCUs), one warm-up and 3 timed runs;
    the launch counters, zeroed just before, show kernels A and B ran
@@ -42,7 +47,16 @@ of tpujpeg/. Phases, one JSON line each:
    and 3 timed runs, counted apart: per call kernel 7 once, 8 and 9
    four times each, kernel 6 three times and B once, and neither A nor
    2. The RGB equals the main path's byte for byte and PIL's hash.
-7. stream: decode_batch_pipelined over 4 chunks of 32 copies of the
+7. norst: the marker-free 2048x2048 fixture (2048 lanes of 8 MCUs at
+   the default every) through decode_norst_to_rgb, nhwc and packed=True,
+   one warm-up and 3 timed runs each, counted apart: A and B, A and the
+   4:2:0 planar kernel; then decode_norst_to_device + transform_frame
+   (kernels 2, 6 three times and B per call), and decode_norst_to_rgb
+   with every=1 (16,384 lanes of one MCU). Every output hashes to PIL's.
+   Also the host split (build_norst_plan) timed alone, and kernels A and
+   2 on both norst plans timed with CUDA events beside their plain
+   versions and their bounds.
+8. stream: decode_batch_pipelined over 4 chunks of 32 copies of the
    2048x2048 fixture (chunk_size 32, depth 2, min(3, cpu count) prep
    threads), with layout="packed16" and "nhwc" (and packed16 on one
    prep thread), one warm-up and 3 timed runs each, counted apart:
@@ -53,15 +67,16 @@ of tpujpeg/. Phases, one JSON line each:
    packed16 chunk of the 4:2:2 fixture (A and the 4:2:2 planar kernel),
    and the packed16 stream with pinned against pageable plans, 4 runs
    each alternated, the first of each a warm-up.
-8. batch: decode_batch_on_device and decode_batch on one list of every
-   fixture (fused, staged, progressive, marker-free, multi-scan), one
-   member with its scan payload zeroed and bytes that are no JPEG: each
-   image hashes to PIL's or fails with the manifest's exception class,
-   each takes its rung (stats.entropy_engine: the device ladder keeps
-   every fixture on the card but the two marker-free ones; decode_batch
-   is host entropy throughout), and the kernels that ran are exactly the
-   rungs' kernels.
-9. kernel_timing: each kernel and its plain version, timed with CUDA
+9. batch: decode_batch_on_device and decode_batch on one list of every
+   fixture (fused, staged, progressive, norst, multi-scan), one member
+   with its scan payload zeroed and bytes that are no JPEG: each image
+   hashes to PIL's or fails with the manifest's exception class, each
+   takes its rung (stats.entropy_engine: the device ladder keeps every
+   fixture on the card, the norst ones on kernel A as
+   "wavefront-skeleton", but the marker-free progressive one, which
+   takes host entropy as in the reference; decode_batch is host entropy
+   throughout), and the kernels that ran are exactly the rungs' kernels.
+10. kernel_timing: each kernel and its plain version, timed with CUDA
    events on the main, staged and progressive paths' inputs (kernels
    7-9 and their plain versions: summed over the scans of their kind at
    batch 32, each scan run from its own input state, the kernel's output
@@ -71,13 +86,16 @@ of tpujpeg/. Phases, one JSON line each:
    also on random 32 x 2048^2 planes (tools/color_probe.py's and
    color_profile.py's A/B), and the tail split of tools/tail_variants.py:
    kernel A alone, A + B and A + the planar kernel.
-10. faults: one corrupted member of a batch fails with the manifest's
-   exception class; the other members stay bit-exact.
-11. decode: tpujpeg_torch.decode of fused fixtures, and of the staged
-   ones (progressive and marker-free 2048^2 through native entropy,
-   kernel 6 and kernel B; multi-scan with entropy_engine="wavefront",
-   kernel 2 per component; the restart-segmented progressive 2048^2
-   with entropy_engine="wavefront", kernels 7-9), hashes to PIL's.
+11. faults: one corrupted member of a batch fails with the manifest's
+   exception class; the other members stay bit-exact. The marker-free
+   2048x2048 fixture with its scan cut in half raises a JpegError from
+   decode_norst_to_rgb.
+12. decode: tpujpeg_torch.decode of fused fixtures, of the norst ones
+   (the fused path on the norst plan, "wavefront-fused-norst"), and of
+   the staged ones (progressive 2048^2 through native entropy, kernel 6
+   and kernel B; multi-scan with entropy_engine="wavefront", kernel 2
+   per component; the restart-segmented progressive 2048^2 with
+   entropy_engine="wavefront", kernels 7-9), hashes to PIL's.
 
 Then the check that no module was loaded from tpujpeg/ and nothing was
 written there, the nvidia-smi line, the kernels JSON line and, last,
@@ -119,10 +137,12 @@ KERNELS = {
         "tpujpeg_torch/csrc/sample_color.cu", "tpujpeg/kernels/sample_color.py:146 (packed_words=True)"),
 }
 STREAM_CHUNKS = 4   # the stream phase's chunks of MAIN_BATCH images
-# The batch phase's rung for the fixtures whose manifest path does not
-# name it: the marker-free streams take host entropy, the multi-scan file
-# kernel 2 per scan.
-BATCH_RUNG = {"prog_2048": "native", "norst_2048": "native", "multiscan": "wavefront-coeff"}
+# The batch phase's rung for each fixture: by its manifest path, but for
+# the staged ones, where the marker-free progressive stream takes host
+# entropy and the multi-scan file kernel 2 per scan.
+PATH_RUNG = {"fused": "wavefront-fused", "progressive": "wavefront-prog", "norst": "wavefront-skeleton"}
+BATCH_RUNG = {"prog_2048": "native", "multiscan": "wavefront-coeff"}
+NORST_MAIN = "norst_2048"   # the norst phase's fixture
 PROG_MAIN = "prog_rst_2048"   # the progressive phase's fixture
 PROG_KERNEL = {"dc_first": "prog_dc_first", "ac_first": "prog_ac_first", "ac_refine": "prog_ac_refine"}
 # The kernels redesigned to keep nothing in local memory.
@@ -297,6 +317,7 @@ def main() -> int:
         check(hashlib.sha256(datas[name]).hexdigest() == entry["file_sha256"], f"{name}: file hash")
     fused = [n for n, e in manifest["fixtures"].items() if e["path"] == "fused"]
     progressive = [n for n, e in manifest["fixtures"].items() if e["path"] == "progressive"]
+    norst = [n for n, e in manifest["fixtures"].items() if e["path"] == "norst"]
     dev = torch.device("cuda", 0)
     parse = tpujpeg_torch.bitstream.parse
     config = tpujpeg_torch.DEFAULT_CONFIG
@@ -418,6 +439,32 @@ def main() -> int:
             gray = planes_k[0][0, : c.dheight, : c.dwidth]
             check(sha(gray) == manifest["fixtures"][name]["pil_sha256"], f"{name}: gray != PIL")
         emit("kernel_vs_plain", **rec)
+
+    # Kernels A and 2 with their start state: the norst plans (lanes cut at
+    # skeleton-scan offsets, starting mid-word with primed predictors).
+    norst_err = {"wavefront_pixels": 0, "wavefront_coeff": 0}
+    for name in norst:
+        jpeg = parse(datas[name])
+        plan = wf.build_norst_plan(jpeg)
+        geoms = [wf.ImageGeom.of(jpeg)]
+        check(plan.bit0 is not None and bool((plan.bit0 % 32).any()), f"{name}: no lane starts mid-word")
+        planes_k, err_k, planes_p, err_p = lanes(plan, geoms, wf.decode_lanes_to_planes)
+        err_a = max(max_abs(torch, a, b) for a, b in zip(planes_k, planes_p))
+        check(err_a == 0 and torch.equal(err_k, err_p), f"{name}: kernel A with bit0/dc0 != plain ({err_a})")
+        check(not err_k.any(), f"{name}: decode errors {err_k.nonzero().flatten().tolist()}")
+        coef_k, err2_k, coef_p, err2_p = lanes(plan, geoms, wf.decode_lanes_to_coeffs)
+        err_2 = max(max_abs(torch, a, b) for a, b in zip(coef_k, coef_p))
+        check(err_2 == 0 and torch.equal(err2_k, err2_p), f"{name}: kernel 2 with bit0/dc0 != plain ({err_2})")
+        idct_k = idct_planes(jpeg.frame, coef_k, qtabs_of(jpeg))
+        check(all(torch.equal(a, b) for a, b in zip(idct_k, planes_k)),
+              f"{name}: kernel 2 + kernel 6 planes != kernel A planes")
+        out_k = color_fns["upsample_color_h2v2"][0](*cropped(jpeg.frame, planes_k))
+        check(sha(out_k[0]) == manifest["fixtures"][name]["pil_sha256"], f"{name}: RGB != PIL")
+        norst_err["wavefront_pixels"] = max(norst_err["wavefront_pixels"], err_a)
+        norst_err["wavefront_coeff"] = max(norst_err["wavefront_coeff"], err_2)
+        emit("kernel_vs_plain", fixture=name, images=1, plan="norst", lanes=plan.n_lanes, words=plan.n_words,
+             every=plan.norst_every, kernel_a_max_abs_err=err_a, kernel_2_max_abs_err=err_2)
+        del planes_k, planes_p, coef_k, coef_p, idct_k, out_k
 
     # The planar kernels on random planes: even widths, odd heights, and
     # row strides that are odd (byte loads) or even (16-bit loads).
@@ -634,7 +681,90 @@ def main() -> int:
     main_image = fused_rgb[0].clone()
     del prgb, fused_rgb
 
-    # 7. stream: 4 chunks of 32 copies of the main fixture through
+    # 7. norst: the marker-free fixture through the norst entries, each
+    # path counted apart; every run parses anew outside the clock, so the
+    # wall holds the host split (destuff, skeleton walk, rows) too.
+    ndata = datas[NORST_MAIN]
+    nwant = manifest["fixtures"][NORST_MAIN]["pil_sha256"]
+    color_space = tpujpeg_torch.bitstream.color_space
+    split_s = []
+    for i in range(4):
+        j = parse(ndata)
+        t0 = time.perf_counter()
+        nplan = wf.build_norst_plan(j)
+        if i:
+            split_s.append(time.perf_counter() - t0)
+    norst_launches = collections.Counter()
+
+    def norst_path(label, fn, per_call, raster=lambda out: out):
+        walls = []
+        build.LAUNCHES.clear()
+        for i in range(4):
+            j = parse(ndata)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(j)
+            torch.cuda.synchronize()
+            if i:
+                walls.append(time.perf_counter() - t0)
+            check(sha(raster(out)) == nwant, f"norst {label}: run {i} != PIL")
+        got = {k: build.LAUNCHES.get(k, 0) for k in KERNELS}
+        check({k: n for k, n in got.items() if n} == {k: 4 * n for k, n in per_call.items()},
+              f"norst {label}: launches {got}, want 4 x {per_call}")
+        norst_launches.update(got)
+        emit("norst", fixture=NORST_MAIN, path=label, calls=4, wall_s=walls,
+             wall_median_s=statistics.median(walls), mp_per_s=2048 * 2048 / 1e6 / statistics.median(walls),
+             launches={k: n for k, n in got.items() if n}, out_dtype=str(out.dtype), out_shape=list(out.shape))
+
+    norst_path("rgb_nhwc", lambda j: tpujpeg_torch.decode_norst_to_rgb(j, config, device=dev),
+               {"wavefront_pixels": 1, "upsample_color_h2v2": 1})
+    norst_path("rgb_packed16", lambda j: tpujpeg_torch.decode_norst_to_rgb(j, config, packed=True, device=dev),
+               {"wavefront_pixels": 1, "upsample_color_h2v2_planar": 1}, lambda out: planar_bytes(torch, out))
+    norst_path("coeff_transform",
+               lambda j: pipeline.transform_frame(j.frame, tpujpeg_torch.decode_norst_to_device(j, config, device=dev),
+                                                  qtabs_of(j), config, color=color_space(j)),
+               {"wavefront_coeff": 1, "dequant_idct_islow": 3, "upsample_color_h2v2": 1})
+    norst_path("rgb_every_1", lambda j: tpujpeg_torch.decode_norst_to_rgb(j, config, every=1, device=dev),
+               {"wavefront_pixels": 1, "upsample_color_h2v2": 1})
+    for k, n in norst_launches.items():
+        launches[k] = launches.get(k, 0) + n
+
+    # Kernels A and 2 alone on the norst plans (default every and every=1),
+    # beside their plain versions and bounds (the rules beside OPS_SYMBOL:
+    # the payload read once, the outputs written once, symbols counted
+    # from the coefficients).
+    njpeg = parse(ndata)
+    ncoef = tpujpeg_torch.decode_norst_to_device(njpeg, config, device=dev)
+    n_blocks = sum(c.shape[0] for c in ncoef)
+    n_symbols = sum(int(c.shape[0] + (c[:, 1:] != 0).sum() + (c[:, 63] == 0).sum()) for c in ncoef)
+    n_coeff_bytes = sum(c.numel() * 4 for c in ncoef)
+    del ncoef
+    nlayout = wf.PlaneLayout.of(wf.ImageGeom.of(njpeg))
+    norst_timing = {"wavefront_pixels": {}, "wavefront_coeff": {}}
+    for key, every in (("default", 0), ("every_1", 1)):
+        pl = wf.build_norst_plan(parse(ndata), every)
+        pd_n = pl.to(dev)
+        err_n = torch.zeros(pl.n_lanes, dtype=torch.int32, device=dev)
+        payload = int((pl.seg_bits.to(torch.int64) - pl.bit0).sum()) // 8
+        for kname, emit_kind in (("wavefront_pixels", "pixels"), ("wavefront_coeff", "coeff")):
+            outs = nlayout.alloc(1, dev, emit_kind)
+            out_bytes = sum(o.numel() * o.element_size() for o in outs)
+            ops = n_symbols * OPS_SYMBOL + (n_blocks * OPS_IDCT_BLOCK if emit_kind == "pixels" else 0)
+            b_ms, b_by = bound(payload + out_bytes, ops)
+            norst_timing[kname][key] = dict(
+                ms=cuda_ms(torch, lambda: wf._launch_wavefront(pd_n, nlayout, outs, err_n, emit_kind), 10),
+                plain_ms=cuda_ms(torch, lambda: wf.decode_lanes_plain(pd_n, nlayout, outs, err_n, emit_kind), 1),
+                bound_ms=b_ms, bound_by=b_by, lanes=pl.n_lanes, words=pl.n_words, every=pl.norst_every,
+                ctas=-(-pl.n_lanes // 128), payload_bytes=payload, out_bytes=out_bytes)
+            check(not err_n.any(), f"norst {key}: {kname} error bits on the timing run")
+            del outs
+        del pd_n, err_n
+    emit("norst_rates", fixture=NORST_MAIN, host_split_s=split_s, host_split_median_s=statistics.median(split_s),
+         lanes=nplan.n_lanes, words=nplan.n_words, every=nplan.norst_every, symbols=n_symbols, blocks=n_blocks,
+         coeff_bytes=n_coeff_bytes, kernels=norst_timing)
+    del nplan
+
+    # 8. stream: 4 chunks of 32 copies of the main fixture through
     # decode_batch_pipelined, each layout counted apart.
     from tpujpeg_torch.parallel import stream as stream_mod
 
@@ -680,7 +810,8 @@ def main() -> int:
              mp_per_s=smp / statistics.median(walls), launches=got, cpu_count=os.cpu_count(),
              image_dtype=str(res.images[0].dtype), image_shape=list(res.images[0].shape))
         del res
-    launches["upsample_color_h2v2_planar"] = stream_launches["packed16"]["upsample_color_h2v2_planar"]
+    launches["upsample_color_h2v2_planar"] = (launches.get("upsample_color_h2v2_planar", 0)
+                                              + stream_launches["packed16"]["upsample_color_h2v2_planar"])
 
     # Pinned against pageable plans: the same packed16 stream with the prep
     # threads' planner writing pageable rows, runs alternated after one
@@ -760,20 +891,21 @@ def main() -> int:
     check(chunk.layout == "packed16" and not chunk.failures, "stream 4:2:2: not packed16")
     for img in (chunk.images[0], chunk.images[-1]):
         check(sha(planar_bytes(torch, img)) == manifest["fixtures"]["422"]["pil_sha256"], "stream 4:2:2 != PIL")
-    launches["upsample_color_h2v1_planar"] = got["upsample_color_h2v1_planar"]
+    launches["upsample_color_h2v1_planar"] = launches.get("upsample_color_h2v1_planar", 0) + got[
+        "upsample_color_h2v1_planar"]
     emit("stream", fixture="422", layout="packed16", images=MAIN_BATCH, launches=got)
     del chunk
 
-    # 8. batch: every fixture, a zeroed payload and bytes that are no JPEG.
+    # 9. batch: every fixture, a zeroed payload and bytes that are no JPEG.
     names = list(manifest["fixtures"])
     bdatas = [datas[n] for n in names] + [zero_payload(datas["420_odd"]), b"not a jpeg"]
     fill0 = next(f["error"] for f in manifest["faults"] if f["fill"] == 0)
     want_err = {len(names): fill0, len(names) + 1: "JpegSyntaxError"}
     # The rung each fixture must take on the device ladder: its path's
-    # kernels, kernel 2 per scan for the multi-scan file, host entropy only
-    # for the two marker-free streams (baseline and progressive).
-    ladder = {n: BATCH_RUNG.get(n, {"fused": "wavefront-fused", "progressive": "wavefront-prog"}.get(
-        manifest["fixtures"][n]["path"])) for n in names}
+    # kernels (kernel A on the norst plan for the norst ones), kernel 2 per
+    # scan for the multi-scan file, host entropy only for the marker-free
+    # progressive stream.
+    ladder = {n: BATCH_RUNG.get(n, PATH_RUNG.get(manifest["fixtures"][n]["path"])) for n in names}
     for fn, want_engines, want_kernels in (
             (tpujpeg_torch.decode_batch_on_device, ladder,
              {"wavefront_pixels", "wavefront_coeff", "dequant_idct_islow", "prog_dc_first", "prog_ac_first",
@@ -800,7 +932,7 @@ def main() -> int:
              entropy_engines=engines, launches={k: n for k, n in build.LAUNCHES.items() if n})
     del res
 
-    # 9. Each kernel against its plain version on the main path's inputs.
+    # 10. Each kernel against its plain version on the main path's inputs.
     results = {}
     geoms = [wf.ImageGeom.of(j) for j in jpegs]
     layout = wf.PlaneLayout.of(geoms[0])
@@ -995,9 +1127,13 @@ def main() -> int:
     del acs, dcs
     for k, r in results.items():
         r["bound_ms"], r["bound_by"] = r.pop("bound")
+    for k, per_plan in norst_timing.items():
+        results[k]["max_abs_err"] = max(results[k]["max_abs_err"], norst_err[k])
+        results[k]["norst"] = per_plan
+    for k, r in results.items():
         emit("kernel_timing", kernel=k, **r)
 
-    # 10. faults
+    # 11. faults
     for fault in manifest["faults"]:
         data = datas[fault["fixture"]]
         js = [parse(data) for _ in range(fault["batch"])]
@@ -1011,13 +1147,23 @@ def main() -> int:
                 check(sha(out[i]) == manifest["fixtures"][fault["fixture"]]["pil_sha256"],
                       f"fault {fault}: member {i} not bit-exact")
         emit("faults", fault=fault, failures=got)
+    cut = parse(datas[NORST_MAIN])
+    cut.scans[0].data = cut.scans[0].data[: len(cut.scans[0].data) // 2]
+    try:
+        tpujpeg_torch.decode_norst_to_rgb(cut, config, device=dev)
+    except tpujpeg_torch.JpegError as e:
+        emit("faults", fixture=NORST_MAIN, fault="scan cut in half", entry="decode_norst_to_rgb",
+             raised=type(e).__name__)
+    else:
+        raise SmokeError(f"{NORST_MAIN} cut in half: decode_norst_to_rgb raised nothing")
 
-    # 11. decode(): fused fixtures, then the staged ones.
+    # 12. decode(): fused fixtures, the norst ones, then the staged ones.
     wavefront = tpujpeg_torch.DecodeConfig(entropy_engine="wavefront")
     for name, cfg, engines in (("420_odd", config, ("wavefront-fused", "cuda")),
                                ("gray", config, ("wavefront-fused", "cuda")),
+                               ("norst_2048", config, ("wavefront-fused-norst", "cuda")),
+                               ("rst_rows_420", config, ("wavefront-fused-norst", "cuda")),
                                ("prog_2048", config, ("native", "cuda")),
-                               ("norst_2048", config, ("native", "cuda")),
                                ("multiscan", wavefront, ("wavefront", "cuda")),
                                (PROG_MAIN, wavefront, ("wavefront", "cuda"))):
         build.LAUNCHES.clear()
@@ -1031,6 +1177,9 @@ def main() -> int:
               f"decode({name}) took {st.entropy_engine}/{st.transform_engine}")
         if name == PROG_MAIN:
             check(all(build.LAUNCHES[k] for k in PROG_KERNEL.values()),
+                  f"decode({name}) launched {dict(build.LAUNCHES)}")
+        if name in norst:
+            check({k for k, n in build.LAUNCHES.items() if n} == {"wavefront_pixels", "upsample_color_h2v2"},
                   f"decode({name}) launched {dict(build.LAUNCHES)}")
         emit("decode", fixture=name, shape=list(out.shape), entropy_engine=st.entropy_engine,
              transform_engine=st.transform_engine, entropy_fallbacks=st.entropy_fallbacks,
@@ -1050,7 +1199,8 @@ def main() -> int:
         dict(name=k, route="cuda", source=KERNELS[k][0], replaces=KERNELS[k][1],
              launches=launches[k], max_abs_err=results[k]["max_abs_err"],
              ms=results[k]["ms"], plain_ms=results[k]["plain_ms"],
-             bound_ms=results[k]["bound_ms"], bound_by=results[k]["bound_by"], library_ms=None)
+             bound_ms=results[k]["bound_ms"], bound_by=results[k]["bound_by"], library_ms=None,
+             **({"norst": results[k]["norst"]} if "norst" in results[k] else {}))
         for k in KERNELS
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -37,7 +37,7 @@ MIXED = [
     make_jpeg(128, 96, seed=4, mode="L", kind="noise"),                           # marker-free, 7 KB scan
     b"not a jpeg",
 ]
-ENGINES = {0: "wavefront-fused", 2: "wavefront-prog", 3: "native"}
+ENGINES = {0: "wavefront-fused", 2: "wavefront-prog", 3: "wavefront-skeleton"}
 
 
 def _names(errors):
@@ -59,7 +59,7 @@ def test_decode_batch_on_device_mixed_list_matches_pil_and_reference(reference_e
     for i, engine in ENGINES.items():
         np.testing.assert_array_equal(res.images[i], pil_decode(MIXED[i]))
         assert res.stats[i].entropy_engine == engine and res.stats[i].transform_engine == "torch"
-        assert res.stats[i].entropy_fallbacks == (engine == "native")
+        assert res.stats[i].entropy_fallbacks == (engine not in ("wavefront-fused", "wavefront-prog"))
     for i in res.errors:
         assert res.images[i] is None and res.stats[i] is None
 
@@ -132,8 +132,8 @@ def test_rejected_bucket_splits_and_keeps_its_members_on_the_device():
     restarts and the standard tables, one with restarts and optimized
     (other) tables, a marker-free stream and a multi-scan file. The
     first three stay on kernel A (two launches, one per table set), the
-    multi-scan file takes kernel 2 per scan, and only the marker-free one
-    takes host entropy."""
+    marker-free one takes kernel A on its norst plan, and the multi-scan
+    file kernel 2 per scan."""
     datas = [
         make_jpeg(128, 96, seed=1, subsampling=2, restart_blocks=8),
         make_jpeg(128, 96, seed=7, subsampling=2),
@@ -146,7 +146,7 @@ def test_rejected_bucket_splits_and_keeps_its_members_on_the_device():
     for d, img in zip(datas, res.images):
         np.testing.assert_array_equal(img, pil_decode(d))
     assert [s.entropy_engine for s in res.stats] == [
-        "wavefront-fused", "native", "wavefront-fused", "wavefront-coeff", "wavefront-fused"]
+        "wavefront-fused", "wavefront-skeleton", "wavefront-fused", "wavefront-coeff", "wavefront-fused"]
 
 
 def test_plan_key_admits_what_the_planner_takes_alone():

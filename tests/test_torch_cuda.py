@@ -1,5 +1,7 @@
 """Kernels A-D, 2, 6, 7-9 and the planar color kernels against their plain
-torch versions on a CUDA card, and the stream and batch entries there.
+torch versions on a CUDA card (A and 2 also with the norst plan's start
+bits and primed DC predictors), and the decode, norst, stream and batch
+entries there.
 
 Every test here needs a card: each skips, with a reason, where
 torch.cuda.is_available() is false. This file imports neither JAX nor PIL,
@@ -13,6 +15,7 @@ tests/test_torch_*.py files; here each kernel is held to its plain
 version, on the committed fixtures and on corrupt streams, tolerance 0.
 """
 
+import dataclasses
 import json
 import os
 
@@ -34,6 +37,7 @@ with open(os.path.join(FIXTURES, "manifest.json")) as _f:
     MANIFEST = json.load(_f)
 FUSED = sorted(n for n, e in MANIFEST["fixtures"].items() if e["path"] == "fused")
 STAGED = sorted(n for n, e in MANIFEST["fixtures"].items() if e["path"] == "staged")
+NORST = sorted(n for n, e in MANIFEST["fixtures"].items() if e["path"] == "norst")
 PROGRESSIVE = sorted(n for n, e in MANIFEST["fixtures"].items() if e["path"] == "progressive")
 PROG_KERNEL = {"dc_first": "prog_dc_first", "ac_first": "prog_ac_first", "ac_refine": "prog_ac_refine"}
 
@@ -165,6 +169,89 @@ def test_kernel_a_and_2_launch_without_syncing_the_stream(cuda):
 def test_kernel_2_matches_plain_on_corrupt_streams(cuda):
     err = _coeff_kernel_and_plain(_corrupt_batch(), cuda)
     assert err.any()
+
+
+RANDOM_START = "420_odd-random_start"
+
+
+def _norst_plan(name):
+    """A fixture's norst plan (lanes that start at bit0 with primed DC
+    predictors); RANDOM_START is 420_odd's restart plan given seeded
+    random start bits (0..31) and predictors, so that lanes start
+    mid-word, decode from there and mostly fail."""
+    if name == RANDOM_START:
+        jpegs, plan = _fixture_plan("420_odd", n=1)
+        g = torch.Generator().manual_seed(23)
+        plan.bit0 = torch.randint(0, 32, (plan.n_lanes,), generator=g, dtype=torch.int32)
+        plan.dc0 = torch.randint(-2048, 2048, (plan.n_lanes, 4), generator=g, dtype=torch.int32)
+        return jpegs, plan
+    jpeg = tpujpeg_torch.bitstream.parse(_read(name))
+    return [jpeg], wf.build_norst_plan(jpeg)
+
+
+@pytest.mark.parametrize("name", NORST + [RANDOM_START])
+def test_kernel_a_and_2_with_start_state_match_plain(cuda, name):
+    """Kernels A and 2 with bit0/dc0 against their plain versions:
+    planes, coefficients and error bits; the norst fixtures decode
+    without an error."""
+    jpegs, plan = _norst_plan(name)
+    assert plan.bit0 is not None and bool((plan.bit0 % 32).any())
+    err_a = _kernel_and_plain(jpegs, cuda, plan)
+    err_2 = _coeff_kernel_and_plain(jpegs, cuda, plan)
+    assert torch.equal(err_a, err_2)
+    assert bool(err_a.any()) == (name == RANDOM_START)
+
+
+def test_restart_plans_unchanged_with_null_start_state(cuda):
+    """A restart plan launched with null bit0/dc0 and with explicit zeros
+    gives the same planes, coefficients and error bits."""
+    jpegs, plan = _fixture_plan("420_odd")
+    zeros = dataclasses.replace(plan, bit0=torch.zeros(plan.n_lanes, dtype=torch.int32),
+                                   dc0=torch.zeros((plan.n_lanes, 4), dtype=torch.int32))
+    geoms = [wf.ImageGeom.of(j) for j in jpegs]
+    for fn in (wf.decode_lanes_to_planes, wf.decode_lanes_to_coeffs):
+        (a, ea), (b, eb) = fn(plan, geoms, cuda), fn(zeros, geoms, cuda)
+        torch.cuda.synchronize()
+        assert torch.equal(ea, eb) and not ea.any()
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_norst_launch_does_not_sync_the_stream(cuda):
+    jpegs, plan = _norst_plan("rst_rows_420")
+    plan = plan.to(cuda)
+    geoms = [wf.ImageGeom.of(j) for j in jpegs]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _planes, err = wf.decode_lanes_to_planes(plan, geoms, cuda)
+        _coeffs, err2 = wf.decode_lanes_to_coeffs(plan, geoms, cuda)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert not err.any() and torch.equal(err, err2)
+
+
+@pytest.mark.parametrize("name", NORST)
+def test_norst_entries_on_card_match_pil_hashes(cuda, name):
+    """decode() takes the fused norst path under auto (kernel A and a
+    color kernel) and kernel 2 on the norst plan under the wavefront
+    engine; decode_norst_to_rgb(packed=True) gives PIL's bytes too."""
+    import hashlib
+
+    want = MANIFEST["fixtures"][name]["pil_sha256"]
+    for entropy, engine, kernel in (("auto", "wavefront-fused-norst", "wavefront_pixels"),
+                                    ("wavefront", "wavefront", "wavefront_coeff")):
+        before = build.LAUNCHES[kernel]
+        out, stats = tpujpeg_torch.decode(
+            _read(name), tpujpeg_torch.DecodeConfig(entropy_engine=entropy), device=cuda, return_stats=True)
+        assert hashlib.sha256(out.tobytes()).hexdigest() == want
+        assert (stats.entropy_engine, stats.transform_engine) == (engine, "cuda")
+        assert build.LAUNCHES[kernel] == before + 1
+    packed = tpujpeg_torch.decode_norst_to_rgb(tpujpeg_torch.bitstream.parse(_read(name)), packed=True,
+                                               device=cuda)
+    h, w2 = packed.shape[1], packed.shape[2]
+    raster = packed.view(torch.uint8).view(3, h, 2 * w2).permute(1, 2, 0).contiguous()
+    assert hashlib.sha256(raster.cpu().numpy().tobytes()).hexdigest() == want
 
 
 @pytest.mark.parametrize("per_image_q", [False, True])
@@ -501,7 +588,8 @@ def test_batch_entries_on_card_match_pil_hashes(cuda):
         if fn is tpujpeg_torch.decode_batch:
             assert set(engines.values()) == {"native"}
         else:
-            assert engines == {n: {"progressive": "wavefront-prog", "fused": "wavefront-fused"}.get(
+            assert engines == {n: {"progressive": "wavefront-prog", "fused": "wavefront-fused",
+                                   "norst": "wavefront-skeleton"}.get(
                 MANIFEST["fixtures"][n]["path"], "wavefront-coeff") for n in names}
 
 

@@ -1,7 +1,8 @@
 """The whole slice on device="cpu": tpujpeg_torch.decode_batch_to_rgb and
 tpujpeg_torch.decode against the reference entry points (interpret mode)
 and PIL, on the reference tests' fused-path corpus, and decode() on the
-streams the fused path turns away (the staged path). Tolerance 0;
+streams the restart-segment fused path turns away (the norst plan and
+the staged path). Tolerance 0;
 failures are compared by image index and exception class name (the
 port's exception classes are distinct objects). Batches with failing
 members are compared in test_torch_wavefront.py (per-lane error bits)
@@ -58,30 +59,46 @@ def test_decode_returns_tensor_without_to_numpy():
     np.testing.assert_array_equal(out.numpy(), pil_decode(data))
 
 
-# The three streams the fused path turns away now decode on the staged
-# path (native entropy, kernel 6, kernel B); with entropy_engine=
-# "wavefront" they stay outside the device paths and raise, naming the
-# slice that will take them. (A progressive stream is outside them only
-# when a scan without restart markers exceeds the 2040-byte row, as
-# here; smaller ones run through kernels 7-9.)
+# The three streams the restart-segment fused path turns away. Under
+# "auto" the marker-free one takes the fused path on the norst plan
+# (kernel A over lanes cut at skeleton-scan offsets), as the reference's
+# _decode_fused_single does, and the other two the staged path (native
+# entropy, kernel 6, kernel B). With entropy_engine="wavefront" the
+# baseline two run kernel 2 (on the norst plan where the restart planner
+# refuses a scan) and equal the reference and PIL; the progressive one,
+# whose scans run over 2040 bytes without restarts, raises in both
+# packages with the reference's wording.
 OUT_OF_SLICE = {
-    "progressive": (make_jpeg(256, 256, seed=5, subsampling=2, progressive=True), "marker-free"),
-    "oversize_segment": (make_jpeg(96, 64, seed=9, subsampling=0), "marker-free"),
-    "multi_scan": (make_multiscan_jpeg(96, 80, seed=9, subsampling=2), "marker-free"),
+    "progressive": (make_jpeg(256, 256, seed=5, subsampling=2, progressive=True),
+                    "progressive scan without restart segmentation"),
+    "oversize_segment": (make_jpeg(96, 64, seed=9, subsampling=0), None),
+    "multi_scan": (make_multiscan_jpeg(96, 80, seed=9, subsampling=2), None),
 }
+AUTO_ENGINE = {"oversize_segment": "wavefront-fused-norst"}
 
 
 @pytest.mark.parametrize("name", list(OUT_OF_SLICE))
 def test_decode_formerly_out_of_slice_matches_reference_and_pil(name):
     data, _ = OUT_OF_SLICE[name]
     got, stats = tpujpeg_torch.decode(data, device="cpu", return_stats=True)
-    assert stats.entropy_engine == "native"
+    assert stats.entropy_engine == AUTO_ENGINE.get(name, "native")
     np.testing.assert_array_equal(got, np.asarray(tpujpeg.decode(data)))
     np.testing.assert_array_equal(got, pil_decode(data))
 
 
 @pytest.mark.parametrize("name", list(OUT_OF_SLICE))
 def test_decode_out_of_slice_raises_unsupported(name):
-    data, slice_word = OUT_OF_SLICE[name]
-    with pytest.raises(tpujpeg_torch.JpegUnsupportedError, match=slice_word):
-        tpujpeg_torch.decode(data, DecodeConfig(entropy_engine="wavefront"), device="cpu")
+    """entropy_engine="wavefront": the progressive stream raises
+    JpegUnsupportedError; the marker-free and multi-scan ones decode on
+    kernel 2's plain version to the reference's image and PIL's, with
+    engine "wavefront" as the reference reports."""
+    data, raise_match = OUT_OF_SLICE[name]
+    config = DecodeConfig(entropy_engine="wavefront")
+    if raise_match is not None:
+        with pytest.raises(tpujpeg_torch.JpegUnsupportedError, match=raise_match):
+            tpujpeg_torch.decode(data, config, device="cpu")
+        return
+    got, stats = tpujpeg_torch.decode(data, config, device="cpu", return_stats=True)
+    assert stats.entropy_engine == "wavefront"
+    np.testing.assert_array_equal(got, np.asarray(tpujpeg.decode(data)))
+    np.testing.assert_array_equal(got, pil_decode(data))

@@ -231,7 +231,8 @@ def test_oversize_scan_without_restarts_raises_in_both():
     packages' device progressive path."""
     data = make_jpeg(256, 256, seed=5, progressive=True, subsampling=2)
     assert any(len(s.data) > 2040 for s in bitstream.parse(data).scans)
-    with pytest.raises(tpujpeg_torch.JpegUnsupportedError, match="marker-free"):
+    with pytest.raises(tpujpeg_torch.JpegUnsupportedError,
+                       match="progressive scan without restart segmentation"):
         tpujpeg_torch.decode(data, DecodeConfig(entropy_engine="wavefront"), device="cpu")
     with pytest.raises(RefJpegUnsupportedError):
         tpujpeg.decode(data, RefDecodeConfig(entropy_engine="wavefront"))

@@ -123,19 +123,23 @@ def test_decode_multiscan_matches_reference():
 def test_decode_all_scans_out_of_slice_raises():
     """A small progressive stream without restarts is one lane per scan
     (kernels 7-9's plain versions here) and gives the python oracle's
-    coefficients; a progressive scan over 2040 bytes without restarts and
-    a marker-free baseline stream are the marker-free slice's."""
+    coefficients; a progressive scan over 2040 bytes without restarts
+    raises with the reference's wording; a marker-free baseline stream
+    takes the norst plan (kernel 2's plain version) and gives the
+    oracle's coefficients."""
     data = make_jpeg(32, 32, seed=1, progressive=True)
     prog = bitstream.parse(data)
     got = pw.decode_all_scans(prog, device="cpu")
     for a, b in zip(got, huffman.decode_all_scans(bitstream.parse(data))):
         np.testing.assert_array_equal(a.numpy(), b)
     big = bitstream.parse(make_jpeg(256, 256, seed=5, progressive=True, subsampling=2))
-    with pytest.raises(tpujpeg_torch.JpegUnsupportedError, match="marker-free"):
+    with pytest.raises(tpujpeg_torch.JpegUnsupportedError,
+                       match="progressive scan without restart segmentation"):
         pw.decode_all_scans(big, device="cpu")
-    norst = bitstream.parse(make_jpeg(96, 64, seed=9, subsampling=0))
-    with pytest.raises(tpujpeg_torch.JpegUnsupportedError, match="marker-free"):
-        pw.decode_all_scans(norst, device="cpu")
+    data = make_jpeg(96, 64, seed=9, subsampling=0)
+    got = pw.decode_all_scans(bitstream.parse(data), device="cpu")
+    for a, b in zip(got, huffman.decode_all_scans(bitstream.parse(data))):
+        np.testing.assert_array_equal(a.numpy(), b)
 
 
 @pytest.mark.parametrize("variant", ["plain_qtabs", "per_image_qtabs", "dc_column"])
@@ -219,9 +223,13 @@ STAGED = {
 
 @pytest.mark.parametrize("name", list(STAGED))
 def test_decode_staged_matches_reference_and_pil(name):
+    """Under "auto" every stream here takes the staged path but the
+    marker-free single scans of the color stage's layouts (4:2:0 and
+    CMYK), which the fused path takes on the norst plan."""
     data = STAGED[name]()
     got, stats = tpujpeg_torch.decode(data, device="cpu", return_stats=True)
-    assert stats.entropy_engine == "native" and stats.transform_engine == "torch"
+    engine = "wavefront-fused-norst" if name in ("marker_free420", "cmyk") else "native"
+    assert stats.entropy_engine == engine and stats.transform_engine == "torch"
     np.testing.assert_array_equal(got, np.asarray(tpujpeg.decode(data)))
     np.testing.assert_array_equal(got, pil_decode(data))
 
@@ -251,14 +259,15 @@ def test_decode_staged_engines_match_pil(name, entropy, transform):
 def test_decode_wavefront_engine_on_progressive_raises():
     """The wavefront engine takes a small progressive stream through
     kernels 7-9 (their plain versions here) and matches PIL; a scan over
-    2040 bytes without restarts raises, naming the marker-free slice."""
+    2040 bytes without restarts raises, as the reference's does."""
     data = STAGED["prog420"]()
     got, stats = tpujpeg_torch.decode(data, DecodeConfig(entropy_engine="wavefront"), device="cpu",
                                       return_stats=True)
     assert stats.entropy_engine == "wavefront"
     np.testing.assert_array_equal(got, pil_decode(data))
     big = make_jpeg(256, 256, seed=5, progressive=True, subsampling=2)
-    with pytest.raises(tpujpeg_torch.JpegUnsupportedError, match="marker-free"):
+    with pytest.raises(tpujpeg_torch.JpegUnsupportedError,
+                       match="progressive scan without restart segmentation"):
         tpujpeg_torch.decode(big, DecodeConfig(entropy_engine="wavefront"), device="cpu")
 
 

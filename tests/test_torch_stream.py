@@ -104,13 +104,20 @@ def test_stream_packed16_falls_back_to_nhwc_when_inapplicable():
     np.testing.assert_array_equal(ch.images[0], pil_decode(d))
 
 
-def test_stream_norst_chunk_uses_device_ladder():
-    """Marker-free streams reject the fused plan (oversize segment) and
-    kernel 2's; the chunk falls back to host entropy and the device
-    transform, bit-exact."""
+def test_stream_norst_chunk_uses_device_ladder(monkeypatch):
+    """Marker-free streams reject the shared fused plan (oversize
+    segment); the chunk falls back to the device ladder, which decodes
+    each image on its norst plan (decode_norst_to_rgb: kernel A and the
+    color stage), bit-exact. The chunk's engine is "fallback", as the
+    reference's."""
+    from tpujpeg_torch.kernels import wavefront as wf
+
+    calls = []
+    real = wf.decode_norst_to_rgb
+    monkeypatch.setattr(wf, "decode_norst_to_rgb", lambda *a, **k: calls.append(1) or real(*a, **k))
     datas = [make_jpeg(256, 192, seed=s, subsampling=2) for s in range(2)]
     res = tpujpeg_torch.decode_batch_pipelined(datas, chunk_size=2, **CPU)
-    assert not res.errors
+    assert not res.errors and len(calls) == 2
     assert {s.entropy_engine for s in res.stats} == {"fallback"}
     for i, d in enumerate(datas):
         np.testing.assert_array_equal(res.images[i], pil_decode(d))

@@ -19,6 +19,13 @@ Public API:
     decode_batch_to_device(jpegs, config, strict, device)
                                                   -> (per image, per component
                                                       int32 [blocks, 64], failures)
+    decode_norst_to_rgb(jpeg, config, every, packed, device)
+                                                  -> uint8 [H, W, 3] for one baseline scan
+                                                     without restart markers (or with
+                                                     segments over the lane row)
+    decode_norst_to_device(jpeg, config, every, device)
+                                                  -> per component int32 [blocks, 64]
+                                                     for such a scan
     decode_all_scans_to_rgb_batch(jpegs, config, packed, defer_errors, device)
                                                   -> (uint8 [N, H, W, 3], layout, failures)
                                                      for a progressive group
@@ -60,7 +67,13 @@ from .errors import (
     JpegTruncatedError,
     JpegUnsupportedError,
 )
-from .kernels.wavefront import decode_batch_to_coeffs, decode_batch_to_device, decode_batch_to_rgb
+from .kernels.wavefront import (
+    decode_batch_to_coeffs,
+    decode_batch_to_device,
+    decode_batch_to_rgb,
+    decode_norst_to_device,
+    decode_norst_to_rgb,
+)
 from .kernels.wavefront_prog import decode_all_scans_batch, decode_all_scans_to_rgb_batch
 from .parallel.batch import BatchResult, decode_batch, decode_batch_on_device
 from .parallel.stream import StreamChunk, decode_batch_pipelined, decode_stream
@@ -72,6 +85,8 @@ __all__ = [
     "decode_batch_to_rgb",
     "decode_batch_to_coeffs",
     "decode_batch_to_device",
+    "decode_norst_to_rgb",
+    "decode_norst_to_device",
     "decode_all_scans_to_rgb_batch",
     "decode_all_scans_batch",
     "decode_batch",

@@ -61,7 +61,8 @@ __device__ __forceinline__ u32 tj_window(const u32* row, int cur, int W, int P) 
 }
 
 // The same window from a two-word register cache (kernels A, 2 and 9):
-// w0, w1 are words cw and cw + 1 of the row. A step of the callers moves
+// w0, w1 are words cw and cw + 1 of the row, starting at word cw0 (the
+// word of the lane's first bit). A step of the callers moves
 // the cursor by at most 32 bits (a code of at most 17 bits plus at most
 // 15 value bits, or one chunk of at most 32 correction bits), so a new
 // cursor word is almost always cw + 1 and costs one load; any other move
@@ -72,9 +73,10 @@ struct TjWords {
   int cw;
   u32 w0, w1;
 
-  __device__ __forceinline__ TjWords(const u32* r, int W_, int P_) : row(r), W(W_), P(P_), cw(0) {
-    w0 = tj_load_word(row, 0, W, P);
-    w1 = tj_load_word(row, 1, W, P);
+  __device__ __forceinline__ TjWords(const u32* r, int W_, int P_, int cw0 = 0)
+      : row(r), W(W_), P(P_), cw(cw0) {
+    w0 = tj_load_word(row, cw0, W, P);
+    w1 = tj_load_word(row, cw0 + 1, W, P);
   }
 
   __device__ __forceinline__ u32 window(int cur) {

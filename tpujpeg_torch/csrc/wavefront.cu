@@ -1,8 +1,9 @@
-// Kernels A and 2: baseline Huffman decode, one thread per lane (restart
-// segment). Kernel A (tj_wavefront_pixels) fuses dequant + islow IDCT and
-// stores u8 samples at their raster positions in the component planes;
-// kernel 2 (tj_wavefront_coeff) stores each block's 64 zigzag int32
-// coefficients (DC absolute) at its raster block index.
+// Kernels A and 2: baseline Huffman decode, one thread per lane (a restart
+// segment, or a piece of a scan cut at a skeleton-scan bit offset). Kernel
+// A (tj_wavefront_pixels) fuses dequant + islow IDCT and stores u8 samples
+// at their raster positions in the component planes; kernel 2
+// (tj_wavefront_coeff) stores each block's 64 zigzag int32 coefficients
+// (DC absolute) at its raster block index.
 //
 // Both replace the Pallas kernel tpujpeg/kernels/wavefront_pallas.py
 // _make_kernel (emit="pixels" and emit="coeff", pallas_call in
@@ -44,8 +45,15 @@
 //    error stop advancing, and their remaining blocks are all-zero (128);
 //  * an AC value is stored even on the symbol that raises BADCODE; RUN
 //    wins over BADCODE when one symbol raises both;
-//  * TRUNC (cursor past seg_bits + 7) is checked once, at the end, and
-//    ORed onto the lane's other bits;
+//  * a lane starts at bit bit0[lane] of its row with its four DC
+//    predictors loaded from dc0[lane * 4 + ci] (the reference's bit0_ref
+//    and dc0_ref: pieces of a marker-free scan, or of a restart segment
+//    over the row cap, cut at skeleton-scan offsets, primed with the
+//    absolute predictors there); with null bit0/dc0 every lane starts at
+//    bit 0 with zero predictors (restart segments);
+//  * TRUNC (cursor past seg_bits + 7, seg_bits counted from the row's
+//    first word) is checked once, at the end, and ORed onto the lane's
+//    other bits;
 //  * dequant and IDCT arithmetic wraps modulo 2^32 like jnp's int32;
 //  * AC sizes are at most 15, so every AC value fits the int16 staging
 //    (the reference keeps coefficient-mode AC values in 16-bit halves of
@@ -72,6 +80,8 @@ struct LaneArgs {
   const int* lane_m;
   const int* lane_q;
   const int* lane_meta;
+  const int* bit0;         // [L] start bit in the row, or null (0)
+  const int* dc0;          // [L][4] primed predictors by frame component, or null (0)
   int L;
   const int* tables;       // [B][2][34] dc/ac maxcode | valoffset
   const uint8_t* huffval;  // [B][2][256]
@@ -164,15 +174,22 @@ __device__ __forceinline__ int staged(const int16_t* st, u64 nzm, int k) {
 template <class Epi>
 __device__ __forceinline__ void decode_lane(const LaneArgs& a, const Smem& sm, const Epi& epi,
                                             int lane) {
-  TjWords words(a.bits + (size_t)lane * a.W, a.W, a.P);
+  int cur = a.bit0 ? a.bit0[lane] : 0;
+  TjWords words(a.bits + (size_t)lane * a.W, a.W, a.P, cur >> 5);
   const int img = a.lane_meta[lane * 3 + 0];
   const int first = a.lane_meta[lane * 3 + 1];
   const int lm = a.lane_m[lane];
   int16_t* st = sm.stage + threadIdx.x;
 
-  int cur = 0;
   int err = 0;
   u32 pred0 = 0u, pred1 = 0u, pred2 = 0u, pred3 = 0u;  // per frame component
+  if (a.dc0) {
+    const int4 d = *(const int4*)(a.dc0 + (size_t)lane * 4);
+    pred0 = (u32)d.x;
+    pred1 = (u32)d.y;
+    pred2 = (u32)d.z;
+    pred3 = (u32)d.w;
+  }
 
   for (int m = 0; m < lm; ++m) {
     const int g = first + m;
@@ -306,13 +323,14 @@ __global__ void __launch_bounds__(TJ_WF_THREADS) wavefront_coeff_kernel(LaneArgs
 // arrays, read here into the kernel's arguments; every other pointer is a
 // device pointer.
 static int launch(bool pixels, const void* bits, int W, int P, const void* seg_bits,
-                  const void* lane_m, const void* lane_q, const void* lane_meta, int L,
+                  const void* lane_m, const void* lane_q, const void* lane_meta,
+                  const void* bit0, const void* dc0, int L,
                   const void* tables, const void* huffval, const void* qsets, const int* blk,
                   const int* comp, const int* lut_of, int B, int nq, int n_planes, int mcus_x,
                   void* p0, void* p1, void* p2, void* p3, void* err, void* stream) {
   if (L <= 0) return (int)cudaSuccess;
   if (B <= 0 || B > TJ_MAX_B || (pixels && nq <= 0) || n_planes <= 0 || n_planes > 4 ||
-      mcus_x <= 0 || W <= 0 || P < W || (P & (P - 1)))
+      mcus_x <= 0 || W <= 0 || P < W || (P & (P - 1)) || (dc0 && ((uintptr_t)dc0 & 15)))
     return (int)cudaErrorInvalidValue;
   if (!pixels) nq = 0;
   LaneArgs a{};
@@ -323,6 +341,8 @@ static int launch(bool pixels, const void* bits, int W, int P, const void* seg_b
   a.lane_m = (const int*)lane_m;
   a.lane_q = (const int*)lane_q;
   a.lane_meta = (const int*)lane_meta;
+  a.bit0 = (const int*)bit0;
+  a.dc0 = (const int*)dc0;
   a.L = L;
   a.tables = (const int*)tables;
   a.huffval = (const uint8_t*)huffval;
@@ -365,29 +385,34 @@ static int launch(bool pixels, const void* bits, int W, int P, const void* seg_b
 }
 
 // Kernel A. qsets: int32 [nq][B][64] zigzag-order quantizer sets, lane_q
-// each lane's set; p0..p3: u8 [N, plane_h, plane_w] planes of the scan's
+// each lane's set; bit0 (int32 [L]) and dc0 (int32 [L][4], 16-byte
+// aligned) each lane's start bit and primed DC predictors, or null for
+// restart lanes; p0..p3: u8 [N, plane_h, plane_w] planes of the scan's
 // components.
 extern "C" int tj_wavefront_pixels(const void* bits, int W, int P, const void* seg_bits,
                                    const void* lane_m, const void* lane_q,
-                                   const void* lane_meta, int L, const void* tables,
-                                   const void* huffval, const void* qsets, const int* blk,
-                                   const int* comp, const int* lut_of, int B, int nq,
-                                   int n_planes, int mcus_x, void* p0, void* p1, void* p2,
-                                   void* p3, void* err, void* stream) {
-  return launch(true, bits, W, P, seg_bits, lane_m, lane_q, lane_meta, L, tables, huffval, qsets,
-                blk, comp, lut_of, B, nq, n_planes, mcus_x, p0, p1, p2, p3, err, stream);
+                                   const void* lane_meta, const void* bit0, const void* dc0,
+                                   int L, const void* tables, const void* huffval,
+                                   const void* qsets, const int* blk, const int* comp,
+                                   const int* lut_of, int B, int nq, int n_planes, int mcus_x,
+                                   void* p0, void* p1, void* p2, void* p3, void* err,
+                                   void* stream) {
+  return launch(true, bits, W, P, seg_bits, lane_m, lane_q, lane_meta, bit0, dc0, L, tables,
+                huffval, qsets, blk, comp, lut_of, B, nq, n_planes, mcus_x, p0, p1, p2, p3, err,
+                stream);
 }
 
-// Kernel 2: as tj_wavefront_pixels without quantizers; c0..c3 are the
-// int32 [N, padded_hb * padded_wb, 64] coefficient arrays of the scan's
-// components (comp's plane_h and plane_w are 8x the padded block grid),
-// each on a 16-byte boundary.
+// Kernel 2: as tj_wavefront_pixels without quantizers (bit0 and dc0 as
+// there); c0..c3 are the int32 [N, padded_hb * padded_wb, 64] coefficient
+// arrays of the scan's components (comp's plane_h and plane_w are 8x the
+// padded block grid), each on a 16-byte boundary.
 extern "C" int tj_wavefront_coeff(const void* bits, int W, int P, const void* seg_bits,
-                                  const void* lane_m, const void* lane_meta, int L,
-                                  const void* tables, const void* huffval, const int* blk,
-                                  const int* comp, const int* lut_of, int B, int n_planes,
-                                  int mcus_x, void* c0, void* c1, void* c2, void* c3, void* err,
-                                  void* stream) {
-  return launch(false, bits, W, P, seg_bits, lane_m, nullptr, lane_meta, L, tables, huffval,
-                nullptr, blk, comp, lut_of, B, 0, n_planes, mcus_x, c0, c1, c2, c3, err, stream);
+                                  const void* lane_m, const void* lane_meta, const void* bit0,
+                                  const void* dc0, int L, const void* tables,
+                                  const void* huffval, const int* blk, const int* comp,
+                                  const int* lut_of, int B, int n_planes, int mcus_x, void* c0,
+                                  void* c1, void* c2, void* c3, void* err, void* stream) {
+  return launch(false, bits, W, P, seg_bits, lane_m, nullptr, lane_meta, bit0, dc0, L, tables,
+                huffval, nullptr, blk, comp, lut_of, B, 0, n_planes, mcus_x, c0, c1, c2, c3, err,
+                stream);
 }

@@ -4,16 +4,22 @@ Port of ``tpujpeg/decoder.py``'s routing. A non-progressive stream with
 ``entropy_engine`` in ('auto', 'wavefront') and ``transform_engine`` in
 ('auto', 'cuda') first tries the fused batch-1 path
 (``decode_batch_to_rgb([jpeg])``: kernel A, then the color stage); a
-data error in it (bad Huffman code, AC overrun, truncation) raises, and
-a stream outside its scope (``JpegUnsupportedError``: no restart
-markers, segments over the lane row, several scans) falls through to the
-staged path:
+data error in it (bad Huffman code, AC overrun, truncation) raises.
+Where the restart planner refuses the stream (``JpegUnsupportedError``:
+no restart markers, segments over the lane row) and ``entropy_engine``
+is 'auto', the fused path runs on the norst plan
+(``decode_norst_to_rgb``: the scan cut at skeleton-scan offsets, kernel
+A, the color stage; engine "wavefront-fused-norst"), as the reference's
+``_decode_fused_single`` does. 'wavefront' keeps the engine it names for
+such a stream: kernel 2 on the norst plan, in the staged path. What the
+fused paths refuse (several scans) falls through to the staged path:
 
 1. entropy to zigzag coefficients: 'auto' takes the native C++ decoder
    on the host (the python oracle when the native library does not
    build, as the reference's ``auto`` does), 'native' and 'python' name
-   one, 'wavefront' runs kernel 2 on `device` (kernels 7-9 for a
-   progressive frame; 'auto' keeps progressive on the host, as the
+   one, 'wavefront' runs kernel 2 on `device` (on the norst plan where
+   the restart planner refuses a scan; kernels 7-9 for a progressive
+   frame; 'auto' keeps progressive on the host, as the
    reference's does);
 2. ``kernels.pipeline.transform_frame`` on `device` (kernel 6, then the
    color kernels; their plain versions for CPU tensors), or the plain
@@ -96,19 +102,28 @@ def decode(data: bytes, config: DecodeConfig = DEFAULT_CONFIG, device="cuda",
         and config.transform_engine in ("auto", "cuda")
     ):
         t0 = time.perf_counter()
+        out = None
         try:
             rgb, failures = wavefront.decode_batch_to_rgb([jpeg], config, device=device)
         except JpegUnsupportedError:
-            stats.entropy_fallbacks += 1
+            if config.entropy_engine == "auto":
+                try:
+                    out = wavefront.decode_norst_to_rgb(jpeg, config, device=device)
+                    stats.entropy_engine = "wavefront-fused-norst"
+                except JpegUnsupportedError:
+                    pass
         else:
             if 0 in failures:
                 raise failures[0]
+            out = rgb[0]
             stats.entropy_engine = "wavefront-fused"
+        if out is not None:
             stats.transform_engine = kernel_engine
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             stats.t_transform = time.perf_counter() - t0
-            return _finish(rgb[0], config, stats, return_stats)
+            return _finish(out, config, stats, return_stats)
+        stats.entropy_fallbacks += 1
 
     t0 = time.perf_counter()
     coeffs = _entropy_decode(jpeg, config, stats, device)

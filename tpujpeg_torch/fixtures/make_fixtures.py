@@ -8,8 +8,10 @@ holds the port to, are made where PIL is installed and committed:
 
 Each file is a ``tests/corpus.py`` call; ``manifest.json`` records the
 call, the path that takes it (``fused``: a restart-segmented single
-scan, kernel A; ``staged``: progressive, marker-free or multi-scan,
-the coefficient path with host entropy or kernel 2; ``progressive``:
+scan, kernel A; ``norst``: a single baseline scan without restart
+markers or with segments over the lane row, kernel A or 2 on the norst
+plan; ``staged``: progressive without restarts or multi-scan, the
+coefficient path with host entropy or kernel 2; ``progressive``:
 restart-segmented progressive, the progressive scan kernels), the
 decoded shape and the sha256 of PIL's decoded bytes.
 ``tests/test_torch_fixtures.py`` checks the manifest against PIL.
@@ -33,7 +35,8 @@ ROOT = os.path.dirname(os.path.dirname(HERE))
 # another generator). "420_2048" is bench.py's corpus shape (2048^2, q85,
 # 4:2:0, restart every 4 MCUs, first seed); "prog_2048" and "norst_2048"
 # are the same image written progressive and without restart markers, and
-# "prog_rst_2048" progressive with its restart markers.
+# "prog_rst_2048" progressive with its restart markers. "rst_rows_420"
+# restarts every MCU row, in segments over the restart planner's row cap.
 FIXTURES = {
     "420_2048": dict(w=2048, h=2048, seed=7, quality=85, subsampling=2, restart_blocks=4),
     "420_odd": dict(w=129, h=65, seed=9, quality=85, subsampling=2, restart_blocks=3),
@@ -50,8 +53,10 @@ FIXTURES = {
                      restart_blocks=4),
     "prog_gray": dict(w=512, h=384, seed=13, quality=85, mode="L", progressive=True,
                       restart_blocks=4),
+    "rst_rows_420": dict(w=512, h=384, seed=14, quality=85, subsampling=2, restart_rows=1),
 }
-STAGED = ("prog_2048", "norst_2048", "multiscan")
+STAGED = ("prog_2048", "multiscan")
+NORST = ("norst_2048", "rst_rows_420")
 PROGRESSIVE = ("prog_rst_2048", "prog_444", "prog_gray")
 
 # One member of a batch of `batch` copies of `fixture` gets its scan
@@ -85,7 +90,8 @@ def main() -> int:
         entries[name] = dict(
             file=f"{name}.jpg",
             call=call_text(kw),
-            path="staged" if name in STAGED else "progressive" if name in PROGRESSIVE else "fused",
+            path=("staged" if name in STAGED else "norst" if name in NORST
+                  else "progressive" if name in PROGRESSIVE else "fused"),
             shape=list(img.shape),
             file_sha256=hashlib.sha256(data).hexdigest(),
             pil_sha256=hashlib.sha256(img.tobytes()).hexdigest(),

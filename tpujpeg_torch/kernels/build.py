@@ -52,7 +52,8 @@ _L = ctypes.c_int64
 _SIGNATURES = {
     "tj_wavefront_pixels": [
         _P, _I, _I,              # bits, W, P
-        _P, _P, _P, _P, _I,      # seg_bits, lane_m, lane_qset, lane_meta, L
+        _P, _P, _P, _P,          # seg_bits, lane_m, lane_qset, lane_meta
+        _P, _P, _I,              # bit0, dc0 (null: restart lanes), L
         _P, _P, _P,              # tables, huffval, qsets (zigzag order)
         _P, _P, _P,              # blk, comp, table set per block (host)
         _I, _I, _I, _I,          # B, nq, n_planes, mcus_x
@@ -61,7 +62,8 @@ _SIGNATURES = {
     ],
     "tj_wavefront_coeff": [
         _P, _I, _I,              # bits, W, P
-        _P, _P, _P, _I,          # seg_bits, lane_m, lane_meta, L
+        _P, _P, _P,              # seg_bits, lane_m, lane_meta
+        _P, _P, _I,              # bit0, dc0 (null: restart lanes), L
         _P, _P,                  # tables, huffval
         _P, _P, _P,              # blk, comp, table set per block (host)
         _I, _I, _I,              # B, n_planes, mcus_x

@@ -1,32 +1,38 @@
-"""Baseline decode with restart segments as lanes: Huffman + dequant +
-islow IDCT straight to raster component planes (kernel A), or Huffman to
-zigzag coefficient blocks at their raster block index (kernel 2).
+"""Baseline decode with lanes of whole restart segments, or of pieces of
+a scan cut at skeleton-scan bit offsets: Huffman + dequant + islow IDCT
+straight to raster component planes (kernel A), or Huffman to zigzag
+coefficient blocks at their raster block index (kernel 2).
 
-Port of the restart-segment part of
-``tpujpeg/kernels/wavefront_pallas.py``: the lane planner
-(``build_block_plan``), the per-lane error mapping
-(``failures_from_err``/``resolve_rgb_errors``), the
-``_make_kernel`` Pallas kernel with ``emit="pixels"`` and
-``emit="coeff"``, which become the CUDA kernels ``tj_wavefront_pixels``
-and ``tj_wavefront_coeff`` in ``csrc/wavefront.cu`` (``lookahead_table``
-is the plain form of their 9-bit lookahead rule), and the coefficient
-entries ``decode_batch_to_coeffs`` (the batch layout kernel 6 takes),
+Port of ``tpujpeg/kernels/wavefront_pallas.py``'s baseline paths: the
+lane planners (``build_block_plan`` for restart segments,
+``build_norst_plan`` for marker-free scans and restart intervals over
+the row cap, with its host skeleton split ``_scan_split_host`` and the
+plain walk ``_skeleton_walk_py``), the per-lane error mapping
+(``failures_from_err``/``resolve_rgb_errors``), the ``_make_kernel``
+Pallas kernel with ``emit="pixels"`` and ``emit="coeff"``, which become
+the CUDA kernels ``tj_wavefront_pixels`` and ``tj_wavefront_coeff`` in
+``csrc/wavefront.cu`` (``lookahead_table`` is the plain form of their
+9-bit lookahead rule; a norst lane starts at its ``bit0`` with its DC
+predictors primed from ``dc0``), and the entries:
+``decode_batch_to_coeffs`` (the batch layout kernel 6 takes),
 ``decode_batch_to_device`` (the reference's per-image split of it),
+``decode_norst_to_device``, ``decode_norst_to_rgb``,
 ``decode_multiscan_to_device`` and ``decode_all_scans``, the wavefront
 entropy engine of ``decode()``, which hands progressive frames to
-``wavefront_prog`` (kernels 7-9) as the reference's does. The plain
-version of both kernels, ``decode_lanes_plain``, is a lane-vectorized
-torch state machine with the same steps as the Pallas kernel; the
-wrappers ``decode_lanes_to_planes`` and ``decode_lanes_to_coeffs`` take
-it only for tensors on the CPU.
+``wavefront_prog`` (kernels 7-9) and streams the restart plan refuses to
+the norst plan, as the reference's does. The plain version of both
+kernels, ``decode_lanes_plain``, is a lane-vectorized torch state machine
+with the same steps as the Pallas kernel; the wrappers
+``decode_lanes_to_planes`` and ``decode_lanes_to_coeffs`` take it only
+for tensors on the CPU.
 
 The TPU layout does not carry over: lanes are a flat [L] axis (no
 [G, 8, K] sublane groups), each lane reads its own row of words from
 device memory, and the kernels store samples or coefficient blocks at
-their raster positions, so there is no assembly pass. The planner still
-keeps the reference's scope (row width rule, ``MAX_WORDS``, one table
-set per batch; ``MAX_QSETS`` in the fused entry) so that both decoders
-accept and reject the same batches.
+their raster positions, so there is no assembly pass. The planners still
+keep the reference's scope (row width rule, ``MAX_WORDS``, the norst
+split's default ``every``, one table set per batch; ``MAX_QSETS`` in the
+fused entry) so that both decoders accept and reject the same streams.
 """
 
 from __future__ import annotations
@@ -50,10 +56,6 @@ MAX_QSETS = 8     # distinct quantizer sets per batch, the reference's
 _ERR_BADCODE = 1
 _ERR_RUN = 2
 _ERR_TRUNC = 4
-
-# Where each unsupported stream shape will be handled.
-_LATER_NORST = "marker-free and oversize-segment streams arrive with the marker-free slice"
-
 
 @dataclasses.dataclass(frozen=True)
 class CanonTable:
@@ -99,7 +101,11 @@ class ImageGeom:
 
 @dataclasses.dataclass
 class LanePlan:
-    """One uniform batch as flat lanes (one lane per restart segment)."""
+    """One uniform batch as flat lanes: one lane per restart segment, or
+    (``build_norst_plan``, one image) one per `norst_every` MCUs of a
+    scan, starting at bit ``bit0`` of its row with its DC predictors
+    primed from ``dc0``. The norst fields are None (0) in a restart plan,
+    whose lanes start at bit 0 with zero predictors."""
 
     bits: torch.Tensor       # int32[L, W] big-endian words, 0xFF padded
     seg_bits: torch.Tensor   # int32[L] destuffed segment length in bits
@@ -113,6 +119,11 @@ class LanePlan:
     n_mcus: int              # most MCUs of any lane
     n_images: int
     img_qset: Tuple[int, ...]
+    bit0: Optional[torch.Tensor] = None     # int32[L] start bit in the lane's row
+    dc0: Optional[torch.Tensor] = None      # int32[L, 4] DC predictors by frame component
+    norst_every: int = 0                    # MCUs per norst lane (the last may be short)
+    lane_seg: Optional[np.ndarray] = None   # int64[L] marker segment of each lane
+    seg_first: Optional[np.ndarray] = None  # int64[segments] first lane of each
 
     @property
     def n_lanes(self) -> int:
@@ -230,7 +241,7 @@ def plan_key(jpeg) -> Tuple:
     scan, tables = _image_tables(jpeg, _spec_key)
     *_counts, stuffed = _image_segments(jpeg.frame, scan)
     if int(stuffed.max()) // 4 + 2 > MAX_WORDS:
-        raise JpegUnsupportedError(f"segment too long: {_LATER_NORST}")
+        raise JpegUnsupportedError(f"segment too long ({int(stuffed.max()) // 4 + 2} words)")
     return tables
 
 
@@ -305,9 +316,7 @@ def build_block_plan(jpegs: Sequence, pin_memory: bool = False) -> LanePlan:
         max_mcus = max(max_mcus, int(nm.max()))
 
     if max_words > MAX_WORDS:
-        raise JpegUnsupportedError(
-            f"segment too long ({max_words} words): {_LATER_NORST}"
-        )
+        raise JpegUnsupportedError(f"segment too long ({max_words} words)")
     # The reference's row width: the longest stuffed segment, in 32-word steps.
     W = -(-max_words // 32) * 32
     meta = np.concatenate(lane_meta, axis=0)
@@ -353,12 +362,24 @@ def build_block_plan(jpegs: Sequence, pin_memory: bool = False) -> LanePlan:
 def plan_from_reference(ref_plan) -> LanePlan:
     """The reference's BlockPlan (numpy, [G, 8, K, ...] lane groups) as
     the port's flat plan: lane groups flattened and trimmed to the real
-    lane count, tables and quantizer sets as tensors. Lets a test feed
-    the identical plan to both decoders."""
+    lane count, tables and quantizer sets as tensors, and for a norst
+    plan the start bits and the [G, 4, 8, K] DC priming as [L, 4]. Lets a
+    test feed the identical plan to both decoders."""
     L = ref_plan.n_lanes
 
     def flat(a):
         return torch.from_numpy(np.ascontiguousarray(np.asarray(a).reshape(-1)[:L]).astype(np.int32))
+
+    norst = {}
+    if ref_plan.bit0 is not None:
+        dc0 = np.asarray(ref_plan.lane_dc0).transpose(0, 2, 3, 1).reshape(-1, 4)[:L]
+        norst = dict(
+            bit0=flat(ref_plan.bit0),
+            dc0=torch.from_numpy(np.ascontiguousarray(dc0).astype(np.int32)),
+            norst_every=ref_plan.norst_every,
+            lane_seg=np.asarray(ref_plan.lane_seg, np.int64),
+            seg_first=np.asarray(ref_plan.seg_first, np.int64),
+        )
 
     blk_tables = tuple(
         (ci, CanonTable(tuple(d.maxcode), tuple(d.valoffset), tuple(d.huffval)),
@@ -382,6 +403,183 @@ def plan_from_reference(ref_plan) -> LanePlan:
         n_mcus=ref_plan.n_mcus,
         n_images=ref_plan.images,
         img_qset=tuple(ref_plan.img_qset),
+        **norst,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Skeleton split: lanes that start mid-stream (marker-free scans and
+# restart intervals over the row cap)
+# ---------------------------------------------------------------------------
+
+
+def _skeleton_walk_py(dest: bytes, jpeg, scan, total: int, every: int):
+    """The skeleton walk's plain version (pure python over one destuffed
+    segment): (int64 bit offsets of every `every`-th MCU plus the total,
+    int32 [offsets, scan components] DC predictors at each). The native
+    ``scan_split_buf`` is held to it. Raises JpegHuffmanError on a bad DC
+    size or an AC run past the block, JpegTruncatedError on an overrun."""
+    from .. import huffman as hf
+
+    tbls = hf.build_tables(scan.huff)
+    frame = jpeg.frame
+    if scan.interleaved:
+        sps: List[int] = []
+        for p, ci in enumerate(scan.comp_indices):
+            c = frame.components[ci]
+            sps += [p] * (c.h * c.v)
+    else:
+        sps = [0]
+    dcts = [tbls[(0, scan.dc_ids[p])] for p in range(scan.n_comps)]
+    acts = [tbls[(1, scan.ac_ids[p])] for p in range(scan.n_comps)]
+    r = hf.BitReader(bytes(dest))
+    offs, dcs = [], []
+    pred = [0] * scan.n_comps
+    for m in range(total):
+        if m % every == 0:
+            offs.append(r.pos * 8 + r.pad_bits - r.cnt)
+            dcs.append(list(pred))
+        for sp in sps:
+            t = hf.decode_symbol(r, dcts[sp])
+            if t > 15:
+                raise JpegHuffmanError("bad DC size")
+            pred[sp] += hf.extend(r.receive(t), t)
+            k = 1
+            while k < 64:
+                rs = hf.decode_symbol(r, acts[sp])
+                run, size = rs >> 4, rs & 15
+                if size == 0:
+                    if run == 15:
+                        k += 16
+                        continue
+                    break
+                k += run
+                if k > 63:
+                    raise JpegHuffmanError("AC run past end of block")
+                r.receive(size)
+                k += 1
+    offs.append(r.pos * 8 + r.pad_bits - r.cnt)
+    dcs.append(list(pred))
+    if r.overrun():
+        raise JpegTruncatedError("entropy stream truncated")
+    return (np.asarray(offs, np.int64),
+            np.asarray(dcs, np.int32).reshape(len(offs), scan.n_comps))
+
+
+def _scan_split_host(jpeg, scan, every: int):
+    """Skeleton scan of every restart segment (or of the one marker-free
+    stream) on the host, by the native walk. Returns (destuffed uint8
+    buffer, int64 absolute bit offsets [L + 1], int64 first lane of each
+    marker segment, int32 [L, scan components] DC predictors at each
+    lane's first MCU, reset to 0 at each marker as T.81 resets them). Lanes start every `every` MCUs
+    inside a marker segment and at every marker (`every` divides the
+    restart interval)."""
+    total = _segment_mcus(jpeg.frame, scan)
+    ri = scan.restart_interval or total
+    dest, seg_starts = native_entropy.destuff_segments(scan)
+    offs_all, dcs_all, seg_first = [], [], []
+    lane0 = mcu = si = 0
+    last_end = 0
+    while mcu < total:
+        n_m = min(ri, total - mcu)
+        s0, s1 = int(seg_starts[si]), int(seg_starts[si + 1])
+        sub = dest[s0:s1]
+        offs, dcs = native_entropy.scan_split_buf(sub, jpeg, scan, n_m, every)
+        seg_first.append(lane0)
+        lane0 += len(offs) - 1
+        offs_all.append(offs[:-1] + s0 * 8)
+        dcs_all.append(dcs[:-1])
+        last_end = offs[-1] + s0 * 8
+        mcu += n_m
+        si += 1
+    offs_flat = np.concatenate(offs_all + [[last_end]]).astype(np.int64)
+    return dest, offs_flat, np.asarray(seg_first, np.int64), np.concatenate(dcs_all)
+
+
+def build_norst_plan(jpeg, every: int = 0) -> LanePlan:
+    """Lane plan of one parsed baseline scan cut at skeleton-scan bit
+    offsets: for marker-free streams (the whole scan one serial chain)
+    and for restart intervals whose segments exceed the row cap. `every`
+    (0: the reference's default, about half of MAX_WORDS per lane) snaps
+    to a divisor of the restart interval, so every lane holds `every`
+    MCUs but the last; it halves while a lane's row would exceed
+    MAX_WORDS. Each lane starts at bit ``bit0`` of its row (the words
+    from the one holding its first bit on, 0xFF past the stream's end)
+    with its DC predictors primed from the skeleton scan (``dc0``, reset
+    at markers), so kernels A and 2 decode true DCs with no fixup pass.
+    Raises as the reference's planner: JpegUnsupportedError outside its
+    scope, JpegHuffmanError or JpegTruncatedError from the walk."""
+    frame = jpeg.frame
+    if frame.progressive:
+        raise JpegUnsupportedError("norst plan: baseline only")
+    if len(jpeg.scans) != 1:
+        raise JpegUnsupportedError("norst plan: one scan only")
+    scan = jpeg.scans[0]
+    if not scan.interleaved and frame.n_components != 1:
+        raise JpegUnsupportedError("norst plan: non-interleaved multi-component scan")
+    total_mcus = _segment_mcus(frame, scan)
+    if total_mcus <= 0:
+        raise JpegUnsupportedError("empty scan")
+    ri = scan.restart_interval or total_mcus
+
+    def snap_divisor(e: int) -> int:
+        e = max(1, min(e, ri))
+        while ri % e:
+            e -= 1
+        return e
+
+    if every <= 0:
+        avg_bits = max(1, len(scan.data) * 8 // total_mcus)
+        every = max(1, (MAX_WORDS * 32 // 2) // avg_bits)
+    every = snap_divisor(every)
+    W = MAX_WORDS + 1
+    for _ in range(6):
+        dest, offs, seg_first, dcs = _scan_split_host(jpeg, scan, every)
+        start_words = offs[:-1] >> 5
+        end_rel = offs[1:] - (start_words << 5)
+        W = -(-int(end_rel.max()) // 32) + 1
+        W = min(-(-W // 32) * 32, MAX_WORDS + 32)
+        if W <= MAX_WORDS or every == 1:
+            break
+        every = snap_divisor(every // 2)
+    if W > MAX_WORDS:
+        raise JpegUnsupportedError("skeleton split: a lane exceeds the row cap")
+
+    L = len(offs) - 1
+    # Row l is dest[4 * start_words[l]:][:4 W], 0xFF past the end: one
+    # gather of sliding-window views.
+    row_bytes = W * 4
+    dest_pad = np.concatenate([dest, np.full(row_bytes + 8, 0xFF, np.uint8)])
+    windows = np.lib.stride_tricks.sliding_window_view(dest_pad, row_bytes)
+    bits = np.ascontiguousarray(windows[start_words * 4]).view(">u4").astype(np.uint32).view(np.int32)
+    dc0 = np.zeros((L, 4), np.int32)
+    for p, ci in enumerate(scan.comp_indices if scan.interleaved else scan.comp_indices[:1]):
+        dc0[:, ci] = dcs[:, p]
+    fm = np.arange(L, dtype=np.int64) * every
+    nm = np.minimum(every, total_mcus - fm).astype(np.int32)
+    meta = np.stack([np.zeros(L, np.int32), fm.astype(np.int32), nm], axis=1)
+
+    _scan, blk_tables = _image_tables(jpeg, CanonTable.from_spec)
+    qset = np.stack([jpeg.qtables[frame.components[ci].tq] for ci, _d, _a in blk_tables])
+    tables_t, huffval_t = _table_tensors(blk_tables)
+    return LanePlan(
+        bits=torch.from_numpy(bits),
+        seg_bits=torch.from_numpy(end_rel.astype(np.int32)),
+        lane_m=torch.from_numpy(nm),
+        lane_qset=torch.zeros(L, dtype=torch.int32),
+        lane_meta=torch.from_numpy(meta),
+        tables=tables_t,
+        huffval=huffval_t,
+        qsets=torch.from_numpy(qset[None].astype(np.int32)),
+        blk_tables=blk_tables,
+        n_mcus=int(nm.max()),
+        n_images=1,
+        img_qset=(0,),
+        bit0=torch.from_numpy((offs[:-1] - (start_words << 5)).astype(np.int32)),
+        dc0=torch.from_numpy(dc0),
+        norst_every=every,
+        lane_seg=fm // ri,
+        seg_first=seg_first,
     )
 
 
@@ -515,7 +713,8 @@ def decode_lanes_plain(plan: LanePlan, layout: PlaneLayout, outs: Sequence[torch
     (uint8 [N, plane_h, plane_w]); for ``emit="coeff"`` (kernel 2), the
     zigzag block with its absolute DC into ``outs[sp][img, block row *
     padded_wb + block column]`` (int32 [N, padded_hb*padded_wb, 64]).
-    Writes the per-lane error bits into ``err`` (int32[L])."""
+    Writes the per-lane error bits into ``err`` (int32[L]). A norst
+    plan's lanes start at their ``bit0`` with predictors from ``dc0``."""
     if emit not in ("pixels", "coeff"):
         raise ValueError(f"emit {emit!r}")
     dev = plan.bits.device
@@ -530,9 +729,15 @@ def decode_lanes_plain(plan: LanePlan, layout: PlaneLayout, outs: Sequence[torch
         qlane = plan.qsets[plan.lane_qset.to(torch.int64)]      # [L, B, 64]
     r8 = torch.arange(8, device=dev)
 
-    cur = torch.zeros(L, dtype=torch.int64, device=dev)
+    # A norst lane starts at its bit0 with primed predictors; a restart
+    # lane at bit 0 with zero predictors.
+    if plan.bit0 is None:
+        cur = torch.zeros(L, dtype=torch.int64, device=dev)
+        pred = torch.zeros(4, L, dtype=torch.int64, device=dev)
+    else:
+        cur = plan.bit0.to(torch.int64)
+        pred = plan.dc0.to(torch.int64).t().contiguous()
     e = torch.zeros(L, dtype=torch.int64, device=dev)
-    pred = torch.zeros(4, L, dtype=torch.int64, device=dev)
     coef = torch.zeros(L, 64, dtype=torch.int64, device=dev)
     for m in range(plan.n_mcus):
         active = m < lane_m
@@ -619,13 +824,18 @@ def _launch_wavefront(plan: LanePlan, layout: PlaneLayout, outs: Sequence[torch.
     name = "wavefront_" + emit
     ptrs = [o.data_ptr() for o in outs] + [0] * (4 - len(outs))
     out_spec = (torch.uint8, 3) if emit == "pixels" else (torch.int32, 3)
+    L, W = plan.bits.shape
+    if (plan.bit0 is None) != (plan.dc0 is None) or (plan.bit0 is not None and (
+            tuple(plan.bit0.shape) != (L,) or tuple(plan.dc0.shape) != (L, 4))):
+        raise ValueError(f"{name}: bit0 and dc0 must be both None, or [{L}] and [{L}, 4]")
+    norst = [] if plan.bit0 is None else [(plan.bit0, torch.int32, 1), (plan.dc0, torch.int32, 2)]
     build.check_args(
         name, dev,
         [(plan.bits, torch.int32, 2), (plan.seg_bits, torch.int32, 1),
          (plan.lane_m, torch.int32, 1), (plan.lane_qset, torch.int32, 1),
          (plan.lane_meta, torch.int32, 2), (plan.tables, torch.int32, 3),
          (plan.huffval, torch.uint8, 3), (plan.qsets, torch.int32, 3), (err, torch.int32, 1)]
-        + [(o, *out_spec) for o in outs],
+        + norst + [(o, *out_spec) for o in outs],
     )
     sets = table_sets(plan.blk_tables)
     if (B > 10 or len(layout.blk) != B or len(outs) > 4 or max(sets) >= 4
@@ -634,16 +844,20 @@ def _launch_wavefront(plan: LanePlan, layout: PlaneLayout, outs: Sequence[torch.
                          f"table sets={max(sets) + 1} out of range")
     if emit == "coeff":
         build.check_aligned(name, outs)  # each block is stored as 16 int4
+    if plan.dc0 is not None:
+        build.check_aligned(name, [plan.dc0])  # a lane's four are one int4
     blk = np.ascontiguousarray(layout.blk, dtype=np.int32)
     comp = np.ascontiguousarray(layout.comp, dtype=np.int32)
     lut_of = np.asarray(sets, dtype=np.int32)
-    L, W = plan.bits.shape
     P = 1 << max(W - 1, 1).bit_length()
+    # Null start state: every lane at bit 0 with zero predictors.
+    bit0 = plan.bit0.data_ptr() if plan.bit0 is not None else None
+    dc0 = plan.dc0.data_ptr() if plan.dc0 is not None else None
     if emit == "pixels":
         rc = lib.tj_wavefront_pixels(
             plan.bits.data_ptr(), W, P,
             plan.seg_bits.data_ptr(), plan.lane_m.data_ptr(), plan.lane_qset.data_ptr(),
-            plan.lane_meta.data_ptr(), L,
+            plan.lane_meta.data_ptr(), bit0, dc0, L,
             plan.tables.data_ptr(), plan.huffval.data_ptr(), plan.qsets.data_ptr(),
             blk.ctypes.data, comp.ctypes.data, lut_of.ctypes.data, B, nq, len(outs), layout.mcus_x,
             *ptrs, err.data_ptr(), build.stream_of(dev),
@@ -651,8 +865,8 @@ def _launch_wavefront(plan: LanePlan, layout: PlaneLayout, outs: Sequence[torch.
     else:
         rc = lib.tj_wavefront_coeff(
             plan.bits.data_ptr(), W, P,
-            plan.seg_bits.data_ptr(), plan.lane_m.data_ptr(), plan.lane_meta.data_ptr(), L,
-            plan.tables.data_ptr(), plan.huffval.data_ptr(),
+            plan.seg_bits.data_ptr(), plan.lane_m.data_ptr(), plan.lane_meta.data_ptr(),
+            bit0, dc0, L, plan.tables.data_ptr(), plan.huffval.data_ptr(),
             blk.ctypes.data, comp.ctypes.data, lut_of.ctypes.data, B, len(outs), layout.mcus_x,
             *ptrs, err.data_ptr(), build.stream_of(dev),
         )
@@ -812,15 +1026,48 @@ def decode_batch_to_device(
     return results, failures
 
 
+def decode_norst_to_device(jpeg, config: DecodeConfig = DEFAULT_CONFIG, every: int = 0,
+                           device="cuda") -> List[torch.Tensor]:
+    """Coefficient decode of one baseline scan the restart planner refuses
+    (no restart markers, or segments over the row cap) on `device`:
+    ``build_norst_plan`` on the host, then kernel 2 over its lanes, each
+    block written at its raster index with its true DC. Returns per frame
+    component (scan component for a non-interleaved scan) int32
+    [padded_blocks, 64] zigzag coefficients. Raises the lowest failing
+    lane's error."""
+    plan = build_norst_plan(jpeg, every)
+    coeffs, err = decode_lanes_to_coeffs(plan, [ImageGeom.of(jpeg)], device)
+    failures = resolve_rgb_errors(err, plan)
+    if failures:
+        raise failures[0]
+    return [c[0] for c in coeffs]
+
+
+def decode_norst_to_rgb(jpeg, config: DecodeConfig = DEFAULT_CONFIG, every: int = 0,
+                        packed: bool = False, device="cuda"):
+    """Fused decode of one baseline scan the restart planner refuses on
+    `device`: ``build_norst_plan``, then kernel A and the color stage
+    (``decode_plan_to_rgb``). Returns uint8 [H, W, 3] (or [H, W] gray) on
+    `device`, or with `packed` where ``pipeline.packed_layout_applies``
+    the planar uint16 [3, H, W/2] whose bytes are the raster. Raises the
+    lowest failing lane's error."""
+    plan = build_norst_plan(jpeg, every)
+    rgb, _layout, err = decode_plan_to_rgb(plan, [jpeg], config, device, packed)
+    failures = resolve_rgb_errors(err, plan)
+    if failures:
+        raise failures[0]
+    return rgb[0]
+
+
 def decode_multiscan_to_device(jpeg, config: DecodeConfig = DEFAULT_CONFIG,
                                device="cuda") -> List[torch.Tensor]:
     """A baseline frame split into per-component non-interleaved scans:
     each scan decodes with kernel 2 as its own one-component frame over
-    the component's (dwidth, dheight) sample grid, and its block grid is
-    padded with zero blocks into the frame's MCU-padded grid. Returns per
-    frame component int32 [padded_blocks, 64] zigzag coefficients on
-    `device`. Raises on data errors; a scan whose segments exceed the
-    lane row raises JpegUnsupportedError naming the marker-free slice."""
+    the component's (dwidth, dheight) sample grid (through
+    ``decode_norst_to_device`` where the restart planner refuses it), and
+    its block grid is padded with zero blocks into the frame's MCU-padded
+    grid. Returns per frame component int32 [padded_blocks, 64] zigzag
+    coefficients on `device`. Raises on data errors."""
     frame = jpeg.frame
     grids: Dict[int, torch.Tensor] = {}
     for scan in jpeg.scans:
@@ -837,9 +1084,13 @@ def decode_multiscan_to_device(jpeg, config: DecodeConfig = DEFAULT_CONFIG,
             frame=subframe, scans=[dataclasses.replace(scan, comp_indices=[0])],
             qtables=jpeg.qtables, restart_interval=scan.restart_interval,
         )
-        comps, _ = decode_batch_to_device([sub], config, strict=True, device=device)
+        try:
+            comps, _ = decode_batch_to_device([sub], config, strict=True, device=device)
+            grid = comps[0][0]
+        except JpegUnsupportedError:
+            grid = decode_norst_to_device(sub, config, device=device)[0]
         sc = subframe.components[0]
-        grid = comps[0][0].reshape(sc.padded_hb, sc.padded_wb, 64)
+        grid = grid.reshape(sc.padded_hb, sc.padded_wb, 64)
         grid = torch.nn.functional.pad(
             grid, (0, 0, 0, c.padded_wb - sc.padded_wb, 0, c.padded_hb - sc.padded_hb)
         )
@@ -859,9 +1110,9 @@ def decode_all_scans(jpeg, config: DecodeConfig = DEFAULT_CONFIG,
     progressive frame runs its scans through kernels 7-9
     (``wavefront_prog.decode_all_scans``), and its DC columns are merged
     into coefficient 0; a multi-scan baseline frame decodes per component
-    (``decode_multiscan_to_device``); any other through kernel 2. Streams
-    whose segments exceed the lane row (marker-free files, huge restart
-    intervals) raise JpegUnsupportedError naming the marker-free slice."""
+    (``decode_multiscan_to_device``); any other through kernel 2, on the
+    norst plan (``decode_norst_to_device``) where the restart planner
+    refuses its one scan (marker-free files, huge restart intervals)."""
     if jpeg.frame.progressive:
         from . import wavefront_prog
 
@@ -871,5 +1122,10 @@ def decode_all_scans(jpeg, config: DecodeConfig = DEFAULT_CONFIG,
         return acs
     if len(jpeg.scans) > 1 and all(s.n_comps == 1 for s in jpeg.scans):
         return decode_multiscan_to_device(jpeg, config, device)
-    comps, _ = decode_batch_to_device([jpeg], config, strict=True, device=device)
+    try:
+        comps, _ = decode_batch_to_device([jpeg], config, strict=True, device=device)
+    except JpegUnsupportedError:
+        if len(jpeg.scans) != 1:
+            raise
+        return decode_norst_to_device(jpeg, config, device=device)
     return comps[0]

@@ -87,9 +87,7 @@ def _seg_geometry(jpeg, scan) -> Tuple[int, int, int]:
     if len(scan.rst_offsets) + 1 < n_seg:
         raise JpegTruncatedError("missing restart segments")
     if n_seg == 1 and total > 1 and len(scan.data) > wf.MAX_WORDS * 4 - 8:
-        raise JpegUnsupportedError(
-            f"progressive scan without restart segmentation: {wf._LATER_NORST}"
-        )
+        raise JpegUnsupportedError("progressive scan without restart segmentation")
     return total, ri, n_seg
 
 
@@ -213,7 +211,7 @@ def build_scan_plan(jpegs: Sequence, k: int) -> ScanPlan:
         W = max(W, _stuffed_width(j.scans[k], n_seg))
     W = min(-(-W // 32) * 32, wf.MAX_WORDS + 32)
     if W > wf.MAX_WORDS:
-        raise JpegUnsupportedError(f"progressive segment too long ({W} words): {wf._LATER_NORST}")
+        raise JpegUnsupportedError(f"progressive segment too long ({W} words)")
     L = sum(n_seg for _t, _r, n_seg in geo)
     bits = np.empty((L, W), dtype=np.int32)
     seg_bits = np.zeros(L, dtype=np.int32)

@@ -20,11 +20,13 @@ them in order, popping each as it goes so that its RGB can be released.
   marker-free, oversize segments) go image by image. A bucket with
   nothing to split (more quantizer sets than kernel A takes) runs kernel
   2 (``decode_batch_to_device(strict=False)``) and ``transform_batch``
-  in sub-buckets by quantizer set. Image by image: kernel 2 per scan
-  (``wavefront.decode_all_scans``), then, for marker-free and oversize
-  segments, host entropy (native C++) and the same transform. The
-  reference takes ``decode_norst_to_rgb`` there, which the marker-free
-  slice will port; its XLA wavefront has no counterpart.
+  in sub-buckets by quantizer set. Image by image: a single scan takes
+  the norst plan through kernel A and the color stage
+  (``wavefront.decode_norst_to_rgb``, engine "wavefront-skeleton"), as
+  the reference's does; then kernel 2 per scan
+  (``wavefront.decode_all_scans``: multi-scan files), then host entropy
+  (native C++) and the same transform. The reference's XLA wavefront has
+  no counterpart.
 
 ``decode_batch`` runs host entropy per image, then ``transform_batch``
 per (bucket, quantizer set) on `device`, or the plain torch transform
@@ -187,9 +189,20 @@ def decode_batch_on_device(datas: Sequence[bytes], config: DecodeConfig = DEFAUL
             record(i, rgb[0], "wavefront-prog")
 
     def coeff_one(i: int) -> None:
-        """One baseline image outside the shared planner's scope: kernel 2
-        per scan (multi-scan files too), else (marker-free or oversize
-        segments) host entropy."""
+        """One baseline image outside the shared planner's scope: a single
+        scan on the norst plan through kernel A and the color stage
+        (``decode_norst_to_rgb``: marker-free or oversize segments, or
+        tables of its own), else kernel 2 per scan (multi-scan files),
+        else host entropy."""
+        if len(jpegs[i].scans) == 1:
+            try:
+                record(i, wf.decode_norst_to_rgb(jpegs[i], config, device=device), "wavefront-skeleton")
+                return
+            except JpegUnsupportedError:
+                pass
+            except JpegError as e:
+                errors[i] = e
+                return
         try:
             decoded.append((i, wf.decode_all_scans(jpegs[i], config, device), "wavefront-coeff"))
         except JpegUnsupportedError:
