@@ -10,8 +10,10 @@ of tpujpeg/. Phases, one JSON line each:
 1. device: the card's name and power limit.
 2. build: nvcc builds the eleven kernels into tpujpeg_torch/_build/ (one
    nvcc per source, all started together), and its -Xptxas -v report:
-   registers, stack and spill bytes per kernel. The redesigned lane
-   kernels (A, 2 and 9) must show no stack and no spill.
+   registers, shared memory, stack and spill bytes per kernel. The
+   redesigned kernels (A, 2, 9 and the four instances of the 4:2:0 tile
+   kernel behind B and the planar kernel) must show no stack and no
+   spill.
 3. kernel_vs_plain: on every fused-path fixture at batch 2, kernel A's
    planes and error bits, kernel 2's coefficients and error bits,
    kernel 6's planes from those coefficients, and kernel B/C/D's RGB,
@@ -25,12 +27,15 @@ of tpujpeg/. Phases, one JSON line each:
    And the planar 4:2:0 and 4:2:2 kernels (the packed16 layout) against
    their plain versions on the 4:2:0/4:2:2 fixtures at batch 2 (an odd
    width cropped to even, after the wrapper refused it) and on random
-   planes with even widths and odd heights. And kernels A and 2 with
-   their start state (bit0, dc0) on the norst plans of the marker-free
-   2048x2048 fixture and of rst_rows_420 (restart segments over the row
-   cap), batch 1: planes, coefficients and error bits equal the plain
-   versions', kernel 6 on kernel 2's coefficients gives kernel A's
-   planes, and the RGB hashes to PIL's.
+   planes with even widths and odd heights. Kernel B and the 4:2:0
+   planar kernel also at the tile kernel's edges (TILE_EDGES: ragged
+   widths and heights, H = 1 and 2, W = 2, padded rows, a crop one
+   column in), on random planes and planes of 0 and 255. And kernels A
+   and 2 with their start state (bit0, dc0) on the norst plans of the
+   marker-free 2048x2048 fixture and of rst_rows_420 (restart segments
+   over the row cap), batch 1: planes, coefficients and error bits equal
+   the plain versions', kernel 6 on kernel 2's coefficients gives kernel
+   A's planes, and the RGB hashes to PIL's.
 4. main_path: decode_batch_to_rgb of 32 copies of the 2048x2048 q85
    4:2:0 fixture (restart every 4 MCUs), one warm-up and 3 timed runs;
    the launch counters, zeroed just before, show kernels A and B ran
@@ -145,8 +150,11 @@ BATCH_RUNG = {"prog_2048": "native", "multiscan": "wavefront-coeff"}
 NORST_MAIN = "norst_2048"   # the norst phase's fixture
 PROG_MAIN = "prog_rst_2048"   # the progressive phase's fixture
 PROG_KERNEL = {"dc_first": "prog_dc_first", "ac_first": "prog_ac_first", "ac_refine": "prog_ac_refine"}
-# The kernels redesigned to keep nothing in local memory.
-NO_LOCAL_MEMORY = ("wavefront_pixels_kernel", "wavefront_coeff_kernel", "prog_ac_refine_kernel")
+# The kernels redesigned to keep nothing in local memory (kernel B and
+# the 4:2:0 planar kernel: the tile kernel's four instances).
+NO_LOCAL_MEMORY = ("wavefront_pixels_kernel", "wavefront_coeff_kernel", "prog_ac_refine_kernel",
+                   "h2v2_tile_kernel<0,0>", "h2v2_tile_kernel<0,1>", "h2v2_tile_kernel<1,0>",
+                   "h2v2_tile_kernel<1,1>")
 
 # The card's roofs for bound_ms: HBM3 at 3.35 TB/s, and integer work at
 # the issue rate of 132 SMs x 128 lanes x 1.98 GHz with two operations
@@ -181,6 +189,19 @@ OPS_COLOR_PIXEL = {"upsample_color_h2v2": 32, "upsample_color_h2v1": 30, "color_
                    "upsample_color_h2v2_planar": 32, "upsample_color_h2v1_planar": 30}
 OPS_SYMBOL = 8
 OPS_CORRECTION_BIT = 2
+
+# Kernel B's and the 4:2:0 planar kernel's tile edges (tiles of 16 rows x
+# 256 columns, 4 tiles down per block, 16 pixels per thread) as (H, W,
+# luma row padding, chroma row padding, first column): widths one and two
+# past a multiple of 16 and of 256, heights one past a tile and one past
+# a block's 64 rows, H = 1 and 2, W = 2, rows whose strides are no
+# multiple of 16 or of 8 bytes, a crop one column in (odd base pointers:
+# the byte instance), 16-byte luma with 8-byte aligned chroma rows, and
+# aligned planes (the 16-byte path).
+TILE_EDGES = [(17, 4097, 0, 0, 0), (17, 4098, 0, 0, 0), (33, 257, 3, 1, 0), (33, 258, 0, 0, 0),
+              (9, 17, 0, 0, 0), (9, 18, 2, 2, 0), (17, 256, 0, 0, 0), (1, 512, 0, 0, 0),
+              (2, 512, 0, 0, 0), (5, 2, 0, 0, 0), (33, 256, 0, 0, 1), (33, 512, 16, 8, 0),
+              (33, 512, 5, 5, 0), (32, 512, 0, 0, 0), (65, 258, 0, 0, 0)]
 
 
 class SmokeError(Exception):
@@ -219,6 +240,19 @@ def planar_bytes(torch, packed):
     """Planar uint16 [..., 3, H, W/2] -> its bytes as uint8 [..., H, W, 3]."""
     *lead, c, h, w2 = packed.shape
     return packed.view(torch.uint8).view(*lead, c, h, 2 * w2).movedim(-3, -1)
+
+
+def edge_planes(torch, gen, dev, h, w, ypad, cpad, off, fill):
+    """Luma [3, h, w] and chroma [3, ceil(h/2), ceil(w/2)] on dev, each
+    cropped from column `off` of a plane `pad` bytes wider: random bytes,
+    or ("0/255") bytes of 0 and 255 only."""
+    def plane(rows, cols, pad):
+        t = torch.randint(0, 256 if fill == "random" else 2, (3, rows + 1, cols + pad + off),
+                          generator=gen, dtype=torch.uint8)
+        return (t if fill == "random" else t * 255).to(dev)[:, :rows, off:off + cols]
+
+    hc, wc = (h + 1) // 2, (w + 1) // 2
+    return [plane(h, w, ypad), plane(hc, wc, cpad), plane(hc, wc, cpad)]
 
 
 def nvidia_smi() -> str:
@@ -478,6 +512,24 @@ def main() -> int:
         err = planar_vs_plain(cname, (y, cb, cr), color_fns[cname][0](y, cb, cr))
         emit("kernel_vs_plain", random_planes=[2, h, w], row_stride=w + pad, kernel=planar_fns[cname][0],
              max_abs_err=err)
+
+    # Kernel B and the 4:2:0 planar kernel (odd widths: B alone) at the
+    # tile kernel's edges, 3 images each, on random planes and on planes
+    # of 0 and 255 only (every clamp): TILE_EDGES' widths, heights, row
+    # paddings and a crop one column in.
+    edge_err = {"upsample_color_h2v2": 0}
+    for h, w, ypad, cpad, off in TILE_EDGES:
+        for fill in ("random", "0/255"):
+            ins = edge_planes(torch, gen, dev, h, w, ypad, cpad, off, fill)
+            out_b = sc.upsample_color_h2v2(*ins)
+            torch.cuda.synchronize()
+            err = max_abs(torch, out_b, sc.upsample_color_h2v2_plain(*ins))
+            check(err == 0, f"upsample_color_h2v2 != plain ({err}) at {(h, w, ypad, cpad, off, fill)}")
+            edge_err["upsample_color_h2v2"] = max(edge_err["upsample_color_h2v2"], err)
+            perr = planar_vs_plain("upsample_color_h2v2", ins, out_b) if w % 2 == 0 else None
+            emit("kernel_vs_plain", tile_edge=[3, h, w], luma_row_stride=ins[0].stride(1),
+                 chroma_row_stride=ins[1].stride(1), luma_offset=ins[0].storage_offset(), fill=fill,
+                 upsample_color_h2v2_max_abs_err=err, upsample_color_h2v2_planar_max_abs_err=perr)
 
     def events():
         return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -998,7 +1050,7 @@ def main() -> int:
         out_k = kern(*ins)
         out_p = plain(*ins)
         results[kname] = dict(
-            max_abs_err=max_abs(torch, out_k, out_p),
+            max_abs_err=max(max_abs(torch, out_k, out_p), edge_err.get(kname, 0)),
             ms=cuda_ms(torch, lambda: kern(*ins), 10),
             plain_ms=cuda_ms(torch, lambda: plain(*ins), 3),
             shape=f"{tuple(ins[0].shape)} luma, {tuple(ins[1].shape)} chroma -> {tuple(out_k.shape)}",

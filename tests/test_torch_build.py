@@ -26,9 +26,35 @@ ptxas info    : Used 12 registers, 380 bytes cmem[0]
 
 def test_parse_ptxas_reads_each_entry():
     assert build.parse_ptxas(PTXAS) == {
-        "prog_ac_refine_kernel": dict(registers=104, stack=0, spill_stores=0, spill_loads=0),
-        "wavefront_pixels_kernel": dict(registers=255, stack=16, spill_stores=8, spill_loads=12),
-        "tj_plain_c_kernel": dict(registers=12, stack=0, spill_stores=0, spill_loads=0),
+        "prog_ac_refine_kernel": dict(registers=104, smem=1600, stack=0, spill_stores=0, spill_loads=0),
+        "wavefront_pixels_kernel": dict(registers=255, smem=0, stack=16, spill_stores=8, spill_loads=12),
+        "tj_plain_c_kernel": dict(registers=12, smem=0, stack=0, spill_stores=0, spill_loads=0),
+    }
+
+
+TEMPLATES = """\
+ptxas info    : Compiling entry function '_Z16h2v2_tile_kernelILb1ELb0EEv5PlaneS0_S0_iiiiiPh' for 'sm_90a'
+ptxas info    : Function properties for _Z16h2v2_tile_kernelILb1ELb0EEv5PlaneS0_S0_iiiiiPh
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 48 registers, used 1 barriers, 3200 bytes smem, 424 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z16h2v2_tile_kernelILb0ELb0EEv5PlaneS0_S0_iiiiiPh' for 'sm_90a'
+ptxas info    : Function properties for _Z16h2v2_tile_kernelILb0ELb0EEv5PlaneS0_S0_iiiiiPh
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 3200 bytes smem, 424 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z18planar_h2v1_kernelILb1EEv5PlaneS0_S0_iiiiPt' for 'sm_90a'
+ptxas info    : Function properties for _Z18planar_h2v1_kernelILb1EEv5PlaneS0_S0_iiiiPt
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 20 registers, 412 bytes cmem[0]
+"""
+
+
+def test_parse_ptxas_keeps_template_instances_apart():
+    """Each instance of a kernel template is its own entry, named with
+    its template arguments' values."""
+    assert build.parse_ptxas(TEMPLATES) == {
+        "h2v2_tile_kernel<1,0>": dict(registers=48, smem=3200, stack=0, spill_stores=0, spill_loads=0),
+        "h2v2_tile_kernel<0,0>": dict(registers=64, smem=3200, stack=8, spill_stores=4, spill_loads=4),
+        "planar_h2v1_kernel<1>": dict(registers=20, smem=0, stack=0, spill_stores=0, spill_loads=0),
     }
 
 

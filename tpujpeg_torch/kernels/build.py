@@ -10,8 +10,8 @@ it is given and returns ``cudaGetLastError()``; ``raise_on_error`` turns
 a non-zero code into an exception. Pointers and the stream go in as
 ``c_void_p``.
 
-Every nvcc runs with ``-Xptxas -v`` (in ``FLAGS``); its report (registers, stack and
-spill bytes per kernel) is parsed and saved beside the library
+Every nvcc runs with ``-Xptxas -v`` (in ``FLAGS``); its report (registers, shared
+memory, stack and spill bytes per kernel) is parsed and saved beside the library
 (``ptxas_report``). Module state is the library handle and
 ``LAUNCHES``, the per-kernel launch counters the wrappers bump after
 each launch.
@@ -131,16 +131,24 @@ def library_path() -> str:
 
 
 def _entry_name(symbol: str) -> str:
-    """A kernel's name from its mangled symbol (_Z23wavefront_pixels_kernel8...)."""
+    """A kernel's name from its mangled symbol (_Z23wavefront_pixels_kernel8...),
+    with the values of its integer or bool template arguments
+    (_Z16h2v2_tile_kernelILb1ELb0EEv... -> h2v2_tile_kernel<1,0>)."""
     m = re.match(r"_Z(\d+)", symbol)
-    return symbol[m.end():m.end() + int(m.group(1))] if m else symbol
+    if not m:
+        return symbol
+    end = m.end() + int(m.group(1))
+    args = re.match(r"I((?:L[a-z]+\d+E)+)E", symbol[end:])
+    if args:
+        return symbol[m.end():end] + "<" + ",".join(re.findall(r"L[a-z]+(\d+)E", args.group(1))) + ">"
+    return symbol[m.end():end]
 
 
 def parse_ptxas(text: str) -> Dict[str, Dict[str, int]]:
-    """Per kernel, {registers, stack, spill_stores, spill_loads} (bytes
-    but for registers) from nvcc -Xptxas -v output. Device functions
-    that were not inlined have properties but no entry; they are left
-    out."""
+    """Per kernel, {registers, smem, stack, spill_stores, spill_loads}
+    (bytes but for registers; smem is the static shared memory per
+    block) from nvcc -Xptxas -v output. Device functions that were not
+    inlined have properties but no entry; they are left out."""
     report: Dict[str, Dict[str, int]] = {}
     entry = props = None
     for line in text.splitlines():
@@ -161,6 +169,8 @@ def parse_ptxas(text: str) -> Dict[str, Dict[str, int]]:
         m = re.search(r"Used (\d+) registers", line)
         if m and entry in report:
             report[entry]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            report[entry]["smem"] = int(m.group(1)) if m else 0
     return report
 
 

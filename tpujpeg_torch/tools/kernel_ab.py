@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the lane kernels of one or more checkouts on one card, in turns.
+"""Time the kernels of one or more checkouts on one card, in turns.
 
     python3 tpujpeg_torch/tools/kernel_ab.py --tree _parent --tree . --order 0,1,1,0
 
@@ -11,16 +11,23 @@ after a warm-up), kernel 6 on kernel 2's coefficients, and kernels 7, 8
 and 9 summed over the scans of their kind on 32 copies of prog_rst_2048
 (kernels 7 and 8, whose work does not depend on the state, as --reps
 back-to-back launches; kernel 9 --reps times from the scan's own input
-state). It uses only entry
-points that every checkout since the progressive kernels has.
+state). Kernel B (sample_color.upsample_color_h2v2) and the 4:2:0 planar
+kernel (upsample_color_h2v2_packed) run on two inputs: kernel A's planes
+of that plan, cropped to the image, and random 32 x 2048^2 planes from a
+fixed seed (the kernel_timing_ab planes of chip_smoke.py). It uses only
+entry points that every checkout since the planar kernels has.
 
 Each process prints one JSON line: its tree, the ms per kernel, nvcc's
--Xptxas -v report of the build, and a SHA-256 digest of each kernel's
-output (kernel A's planes, kernel 2's coefficients, the progressive
-state after all scans). The driver checks that the digests of every
-tree agree, then prints the card's name and power limit and one summary
-line (per tree, per kernel: every run's ms and their median), and writes
-all of it to --out. Needs a CUDA card and nvcc; exits non-zero without.
+-Xptxas -v report of the build, the SASS instruction count of each
+kernel in the built library (cuobjdump -sass: all instructions but NOP,
+and per opcode), and a SHA-256 digest of each kernel's output (kernel
+A's planes, kernel 2's coefficients, the progressive state after all
+scans, each color kernel's RGB on each input). The parent process checks that
+the digests of every tree agree, then prints the card's name and power
+limit and one summary line (per tree, per kernel: every run's ms and
+their median; the ptxas report, parsed here or, for a library built
+before the run, the tree's saved one; the SASS counts), and writes all
+of it to --out. Needs a CUDA card and nvcc; exits non-zero without.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import hashlib
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -46,6 +54,22 @@ def _digest(tensors) -> str:
     return h.hexdigest()
 
 
+def sass_counts(lib: str, cuobjdump: str) -> dict:
+    """Per kernel of the library (by mangled symbol), its SASS
+    instructions but NOPs: {"instructions": n, "opcodes": {mnemonic: n}}."""
+    text = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True, check=True).stdout
+    counts, ops = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            ops = counts.setdefault(m.group(1), {})
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if m and ops is not None and m.group(1) != "NOP":
+            ops[m.group(1)] = ops.get(m.group(1), 0) + 1
+    return {k: {"instructions": sum(v.values()), "opcodes": dict(sorted(v.items()))} for k, v in counts.items()}
+
+
 def run_one(tree: str, reps: int) -> dict:
     """Time the kernels of `tree`'s package in this process."""
     tree = os.path.abspath(tree)
@@ -54,6 +78,7 @@ def run_one(tree: str, reps: int) -> dict:
 
     import tpujpeg_torch
     from tpujpeg_torch.kernels import build, idct
+    from tpujpeg_torch.kernels import sample_color as sc
     from tpujpeg_torch.kernels import wavefront as wf
     from tpujpeg_torch.kernels import wavefront_prog as wp
 
@@ -66,6 +91,8 @@ def run_one(tree: str, reps: int) -> dict:
     with contextlib.redirect_stdout(out):
         build.build(verbose=True)
     build.get_lib()
+    # A library built before this process left its report beside it.
+    ptxas = out.getvalue() if "Compiling entry function" in out.getvalue() else None
     fixtures = os.path.join(tree, "tpujpeg_torch", "fixtures")
 
     def parsed(name):
@@ -100,7 +127,20 @@ def run_one(tree: str, reps: int) -> dict:
     ms["dequant_idct_islow"] = cuda_ms(lambda: [
         idct.dequant_idct_islow(c, q, fc.padded_hb, fc.padded_wb)
         for c, q, fc in zip(coeffs, qtabs, frame.components)])
-    del planes, coeffs
+    del coeffs
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    color_inputs = {
+        "main": [p[:, : c.dheight, : c.dwidth] for p, c in zip(planes, frame.components)],
+        "random": [torch.randint(0, 256, shape, generator=g, dtype=torch.uint8, device=dev)
+                   for shape in ((BATCH, 2048, 2048), (BATCH, 1024, 1024), (BATCH, 1024, 1024))],
+    }
+    for label, ins in color_inputs.items():
+        for kname, fn in (("upsample_color_h2v2", sc.upsample_color_h2v2),
+                          ("upsample_color_h2v2_planar", sc.upsample_color_h2v2_packed)):
+            ms[f"{kname}/{label}"] = cuda_ms(lambda fn=fn, ins=ins: fn(*ins))
+            digests[f"{kname}/{label}"] = _digest([fn(*ins)])
+    del planes, color_inputs
 
     pjpegs = parsed("prog_rst_2048")
     acs, dcs = wp.new_state(pjpegs[0].frame, BATCH, dev)
@@ -140,8 +180,10 @@ def run_one(tree: str, reps: int) -> dict:
             raise RuntimeError(f"{kernel[step.kind]}: error bits on a clean stream")
         ms[kernel[step.kind]] += statistics.mean(times)
     digests["progressive_state"] = _digest(acs + dcs)
-    return dict(tree=tree, ms=ms, digests=digests, ptxas_text=out.getvalue(),
-                device=torch.cuda.get_device_name(0))
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    return dict(tree=tree, ms=ms, digests=digests, ptxas_text=ptxas,
+                ptxas_saved=None if ptxas else build.ptxas_report(),
+                sass=sass_counts(build.library_path(), cuobjdump), device=torch.cuda.get_device_name(0))
 
 
 def nvidia_smi() -> str:
@@ -174,17 +216,18 @@ def main() -> int:
         run = json.loads(res.stdout.strip().splitlines()[-1])
         run["label"] = trees[i]
         runs.append(run)
-        lines.append(json.dumps({k: v for k, v in run.items() if k != "ptxas_text"}))
+        lines.append(json.dumps({k: v for k, v in run.items() if k not in ("ptxas_text", "ptxas_saved", "sass")}))
         print(lines[-1], flush=True)
     sys.path.insert(0, os.path.dirname(os.path.dirname(HERE)))
     from tpujpeg_torch.kernels import build
 
     summary = {}
     for run in runs:
-        s = summary.setdefault(run["label"], {"ms": {}, "ptxas": {}})
+        s = summary.setdefault(run["label"], {"ms": {}, "ptxas": {}, "sass": {}})
         for k, v in run["ms"].items():
             s["ms"].setdefault(k, []).append(v)
-        s["ptxas"].update(build.parse_ptxas(run["ptxas_text"]))
+        s["ptxas"].update(build.parse_ptxas(run["ptxas_text"]) if run["ptxas_text"] else run["ptxas_saved"])
+        s["sass"].update({build._entry_name(k): v for k, v in run["sass"].items()})
     for s in summary.values():
         s["median_ms"] = {k: statistics.median(v) for k, v in s["ms"].items()}
     agree = all(run["digests"] == runs[0]["digests"] for run in runs)
