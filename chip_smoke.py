@@ -11,8 +11,8 @@ of tpujpeg/. Phases, one JSON line each:
 2. build: nvcc builds the eleven kernels into tpujpeg_torch/_build/ (one
    nvcc per source, all started together), and its -Xptxas -v report:
    registers, shared memory, stack and spill bytes per kernel. The
-   redesigned kernels (A, 2, 9 and the four instances of the 4:2:0 tile
-   kernel behind B and the planar kernel) must show no stack and no
+   redesigned kernels (A, 2, 7, 8, 9 and the four instances of the 4:2:0
+   tile kernel behind B and the planar kernel) must show no stack and no
    spill.
 3. kernel_vs_plain: on every fused-path fixture at batch 2, kernel A's
    planes and error bits, kernel 2's coefficients and error bits,
@@ -82,7 +82,10 @@ of tpujpeg/. Phases, one JSON line each:
    takes host entropy as in the reference; decode_batch is host entropy
    throughout), and the kernels that ran are exactly the rungs' kernels.
 10. kernel_timing: each kernel and its plain version, timed with CUDA
-   events on the main, staged and progressive paths' inputs (kernels
+   events on the main, staged and progressive paths' inputs (a kernel's
+   window opens on a queue the card's sleep kept full, so it holds no
+   host time of the wrapper; kernels 7-9 also with the window opened on
+   an idle card, ms_with_wrapper, the figure of earlier runs; kernels
    7-9 and their plain versions: summed over the scans of their kind at
    batch 32, each scan run from its own input state, the kernel's output
    state and error bits equal to the plain version's), beside its
@@ -150,11 +153,12 @@ BATCH_RUNG = {"prog_2048": "native", "multiscan": "wavefront-coeff"}
 NORST_MAIN = "norst_2048"   # the norst phase's fixture
 PROG_MAIN = "prog_rst_2048"   # the progressive phase's fixture
 PROG_KERNEL = {"dc_first": "prog_dc_first", "ac_first": "prog_ac_first", "ac_refine": "prog_ac_refine"}
-# The kernels redesigned to keep nothing in local memory (kernel B and
-# the 4:2:0 planar kernel: the tile kernel's four instances).
-NO_LOCAL_MEMORY = ("wavefront_pixels_kernel", "wavefront_coeff_kernel", "prog_ac_refine_kernel",
-                   "h2v2_tile_kernel<0,0>", "h2v2_tile_kernel<0,1>", "h2v2_tile_kernel<1,0>",
-                   "h2v2_tile_kernel<1,1>")
+# The kernels redesigned to keep nothing in local memory (A, 2, 7, 8, 9,
+# and kernel B and the 4:2:0 planar kernel: the tile kernel's four
+# instances).
+NO_LOCAL_MEMORY = ("wavefront_pixels_kernel", "wavefront_coeff_kernel", "prog_dc_first_kernel",
+                   "prog_ac_first_kernel", "prog_ac_refine_kernel", "h2v2_tile_kernel<0,0>",
+                   "h2v2_tile_kernel<0,1>", "h2v2_tile_kernel<1,0>", "h2v2_tile_kernel<1,1>")
 
 # The card's roofs for bound_ms: HBM3 at 3.35 TB/s, and integer work at
 # the issue rate of 132 SMs x 128 lanes x 1.98 GHz with two operations
@@ -265,7 +269,11 @@ def nvidia_smi() -> str:
 
 
 def cuda_ms(torch, fn, reps):
-    """Mean device time of fn() over reps launches, after one warm-up."""
+    """Mean time of fn() over reps calls, after one warm-up, from an idle
+    card: the plain versions' timer (they sync the host inside). A
+    kernel's time is device_ms (tpujpeg_torch/tools/kernel_ab.py): the card
+    sleeps before the start event until the launches are queued, so the
+    window holds no host time of the wrapper."""
     fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -341,6 +349,7 @@ def main() -> int:
         return 1
     from tpujpeg_torch.kernels import build, idct, pipeline, sample_color as sc, wavefront as wf
     from tpujpeg_torch.kernels import wavefront_prog as wp
+    from tpujpeg_torch.tools.kernel_ab import device_ms
 
     with open(os.path.join(FIXTURES, "manifest.json")) as f:
         manifest = json.load(f)
@@ -804,7 +813,7 @@ def main() -> int:
             ops = n_symbols * OPS_SYMBOL + (n_blocks * OPS_IDCT_BLOCK if emit_kind == "pixels" else 0)
             b_ms, b_by = bound(payload + out_bytes, ops)
             norst_timing[kname][key] = dict(
-                ms=cuda_ms(torch, lambda: wf._launch_wavefront(pd_n, nlayout, outs, err_n, emit_kind), 10),
+                ms=device_ms(torch, lambda: wf._launch_wavefront(pd_n, nlayout, outs, err_n, emit_kind), 10),
                 plain_ms=cuda_ms(torch, lambda: wf.decode_lanes_plain(pd_n, nlayout, outs, err_n, emit_kind), 1),
                 bound_ms=b_ms, bound_by=b_by, lanes=pl.n_lanes, words=pl.n_words, every=pl.norst_every,
                 ctas=-(-pl.n_lanes // 128), payload_bytes=payload, out_bytes=out_bytes)
@@ -1002,7 +1011,7 @@ def main() -> int:
     scratch = layout.alloc(len(geoms), dev)
     results["wavefront_pixels"] = dict(
         max_abs_err=err_a,
-        ms=cuda_ms(torch, lambda: wf._launch_wavefront(pd, layout, scratch, err_s), 5),
+        ms=device_ms(torch, lambda: wf._launch_wavefront(pd, layout, scratch, err_s), 5),
         plain_ms=cuda_ms(torch, lambda: wf.decode_lanes_plain(pd, layout, scratch, err_s), 1),
         shape=lane_shape,
         bound=bound(row_bytes + sum(p.numel() for p in planes_k), decode_ops + blocks * OPS_IDCT_BLOCK),
@@ -1016,7 +1025,7 @@ def main() -> int:
     scratch = layout.alloc(len(geoms), dev, "coeff")
     results["wavefront_coeff"] = dict(
         max_abs_err=err_2,
-        ms=cuda_ms(torch, lambda: wf._launch_wavefront(pd, layout, scratch, err_s, "coeff"), 5),
+        ms=device_ms(torch, lambda: wf._launch_wavefront(pd, layout, scratch, err_s, "coeff"), 5),
         plain_ms=cuda_ms(torch, lambda: wf.decode_lanes_plain(pd, layout, scratch, err_s, "coeff"), 1),
         shape=lane_shape,
         bound=bound(row_bytes + coeff_bytes, decode_ops),
@@ -1032,7 +1041,7 @@ def main() -> int:
     del idct_p
     results["dequant_idct_islow"] = dict(
         max_abs_err=err_6,
-        ms=cuda_ms(torch, lambda: idct_planes(frame, coef_k, qtabs), 10),
+        ms=device_ms(torch, lambda: idct_planes(frame, coef_k, qtabs), 10),
         plain_ms=cuda_ms(torch, lambda: idct_planes(frame, coef_k, qtabs, plain=True), 1),
         shape=" + ".join(f"{tuple(c.shape)}" for c in coef_k) + " int32, one launch per component",
         bound=bound(coeff_bytes + sum(p.numel() for p in idct_k), blocks * OPS_IDCT_BLOCK),
@@ -1051,7 +1060,7 @@ def main() -> int:
         out_p = plain(*ins)
         results[kname] = dict(
             max_abs_err=max(max_abs(torch, out_k, out_p), edge_err.get(kname, 0)),
-            ms=cuda_ms(torch, lambda: kern(*ins), 10),
+            ms=device_ms(torch, lambda: kern(*ins), 10),
             plain_ms=cuda_ms(torch, lambda: plain(*ins), 3),
             shape=f"{tuple(ins[0].shape)} luma, {tuple(ins[1].shape)} chroma -> {tuple(out_k.shape)}",
             bound=bound(sum(t.numel() for t in ins) + out_k.numel(),
@@ -1067,7 +1076,7 @@ def main() -> int:
                   f"{pname}: kernel != plain or != {kname}'s bytes on the main path")
             results[pname] = dict(
                 max_abs_err=max(err, planar_err[pname]),
-                ms=cuda_ms(torch, lambda: pkern(*ins), 10),
+                ms=device_ms(torch, lambda: pkern(*ins), 10),
                 plain_ms=cuda_ms(torch, lambda: pplain(*ins), 3),
                 shape=f"{tuple(ins[0].shape)} luma, {tuple(ins[1].shape)} chroma -> uint16 {tuple(out_pk.shape)}",
                 bound=results[kname]["bound"],
@@ -1085,8 +1094,8 @@ def main() -> int:
                      MAIN_BATCH * 2048 * 2048 * OPS_COLOR_PIXEL["upsample_color_h2v2"])
     ab_err = planar_vs_plain("upsample_color_h2v2", ab_ins, sc.upsample_color_h2v2(*ab_ins))
     emit("kernel_timing_ab", planes="random 32 x 2048^2 luma, 32 x 1024^2 chroma", max_abs_err=ab_err,
-         upsample_color_h2v2_ms=cuda_ms(torch, lambda: sc.upsample_color_h2v2(*ab_ins), 10),
-         upsample_color_h2v2_planar_ms=cuda_ms(torch, lambda: sc.upsample_color_h2v2_packed(*ab_ins), 10),
+         upsample_color_h2v2_ms=device_ms(torch, lambda: sc.upsample_color_h2v2(*ab_ins), 10),
+         upsample_color_h2v2_planar_ms=device_ms(torch, lambda: sc.upsample_color_h2v2_packed(*ab_ins), 10),
          bound_ms=ab_bound[0], bound_by=ab_bound[1])
     del ab_ins
 
@@ -1100,17 +1109,18 @@ def main() -> int:
 
     a_bound, c_bound = results["wavefront_pixels"]["bound"][0], results["upsample_color_h2v2"]["bound"][0]
     emit("tail_split", fixture="420_2048", images=MAIN_BATCH,
-         a_ms=cuda_ms(torch, kernel_a, 5),
-         a_b_ms=cuda_ms(torch, lambda: (kernel_a(), sc.upsample_color_h2v2(*tail_ins)), 5),
-         a_planar_ms=cuda_ms(torch, lambda: (kernel_a(), sc.upsample_color_h2v2_packed(*tail_ins)), 5),
+         a_ms=device_ms(torch, kernel_a, 5),
+         a_b_ms=device_ms(torch, lambda: (kernel_a(), sc.upsample_color_h2v2(*tail_ins)), 5),
+         a_planar_ms=device_ms(torch, lambda: (kernel_a(), sc.upsample_color_h2v2_packed(*tail_ins)), 5),
          a_bound_ms=a_bound, a_color_bound_ms=a_bound + c_bound)
     del scratch, tail_ins, planes_k
 
     # Kernels 7-9 at batch 32, scan by scan: the plain version runs once
     # on a copy of the scan's input state, each timed launch from that
-    # input state (restored before every rep), then the state, moved on
-    # to the kernel's output, and the error bits must equal the plain
-    # version's.
+    # input state (restored before every rep; device_ms, then with the
+    # window opened on an idle card, the wrapper's host time included),
+    # then the state, moved on to the kernel's output, and the error bits
+    # must equal the plain version's.
     def run_scan(plan, target, err, plain=False):
         if plan.kind == "dc_first":
             wp.dc_first(plan, target, err, plain=plain)
@@ -1122,6 +1132,7 @@ def main() -> int:
     acs, dcs = wp.new_state(pframe, MAIN_BATCH, dev)
     prog_ms = {k: 0.0 for k in PROG_KERNEL.values()}
     prog_plain_ms = {k: 0.0 for k in PROG_KERNEL.values()}
+    prog_wrapper_ms = {k: 0.0 for k in PROG_KERNEL.values()}
     prog_err32 = {k: 0 for k in PROG_KERNEL.values()}
     prog_bytes = {k: 0 for k in PROG_KERNEL.values()}
     prog_ops = {k: 0 for k in PROG_KERNEL.values()}
@@ -1144,10 +1155,15 @@ def main() -> int:
         end.record()
         torch.cuda.synchronize()
         prog_plain_ms[kname] += start.elapsed_time(end)
-        reps = []
-        for _ in range(3):
+
+        def restore():
             for t, b in zip(target, before):
                 t.copy_(b)
+
+        prog_ms[kname] += device_ms(torch, lambda: run_scan(plan, target, err_s), 3, restore)
+        reps = []
+        for _ in range(3):
+            restore()
             torch.cuda.synchronize()
             start, end = events()
             start.record()
@@ -1161,7 +1177,7 @@ def main() -> int:
               f"error bits equal: {torch.equal(err_s, err_p)})")
         check(not err_s.any(), f"{kname}: error bits on the timing run")
         prog_err32[kname] = max(prog_err32[kname], diff)
-        prog_ms[kname] += statistics.mean(reps)
+        prog_wrapper_ms[kname] += statistics.mean(reps)
         nbytes, ops = prog_work(torch, plan, pframe, before[0], target[0])
         prog_bytes[kname] += nbytes
         prog_ops[kname] += ops
@@ -1170,8 +1186,8 @@ def main() -> int:
     for scan_kind, kname in PROG_KERNEL.items():
         lanes_k = sum(st.n_lanes for st in kernel_steps if st.kind == scan_kind)
         results[kname] = dict(
-            max_abs_err=prog_err32[kname], ms=prog_ms[kname], plain_ms=prog_plain_ms[kname],
-            launches_timed=prog_scans[kname],
+            max_abs_err=prog_err32[kname], ms=prog_ms[kname], ms_with_wrapper=prog_wrapper_ms[kname],
+            plain_ms=prog_plain_ms[kname], launches_timed=prog_scans[kname],
             shape=(f"{prog_scans[kname]} {scan_kind} scans of {MAIN_BATCH} x {PROG_MAIN}, {lanes_k} lanes in all, "
                    f"ms and plain_ms summed over the scans"),
             bound=bound(prog_bytes[kname], prog_ops[kname]),

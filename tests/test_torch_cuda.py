@@ -464,6 +464,150 @@ def test_prog_ac_refine_refuses_misaligned_state(cuda):
     assert build.LAUNCHES["prog_ac_refine"] == before + 1
 
 
+def _step_kernel_and_plain(step, acs, dcs):
+    """One kernel scan through its kernel and, on clones of the same CUDA
+    state, its plain version: error bits and every state tensor equal, one
+    launch counted. Returns the kernel's error bits."""
+    name = PROG_KERNEL[step.kind]
+    acs_p, dcs_p = [a.clone() for a in acs], [d.clone() for d in dcs]
+    before = build.LAUNCHES[name]
+    err, _ = wp.apply_step(step, acs, dcs)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[name] == before + 1
+    err_p, _ = wp.apply_step(step, acs_p, dcs_p, plain=True)
+    assert build.LAUNCHES[name] == before + 1
+    assert torch.equal(err, err_p), f"{name} error bits"
+    for a, b in zip(acs + dcs, acs_p + dcs_p):
+        assert torch.equal(a, b), f"{name} state"
+    return err
+
+
+def _plan_luts(tables, huffval):
+    """int16 [n_sp, 512] lookahead tables of a plan's tables and symbols."""
+    return torch.stack([
+        wf.lookahead_table(wf.CanonTable(tuple(t[:17]), tuple(t[17:]), tuple(h))).to(torch.int16)
+        for t, h in zip(tables.tolist(), huffval.tolist())])
+
+
+def _random_rows(plan, g):
+    plan.bits = torch.randint(-(2**31), 2**31 - 1, plan.bits.shape, generator=g, dtype=torch.int32)
+
+
+def _first_plan(jpegs, kind):
+    return next(s for s in wp.plan_scans(jpegs) if isinstance(s, wp.ScanPlan) and s.kind == kind)
+
+
+@pytest.mark.parametrize("symbols", ["fixture", "random"])
+@pytest.mark.parametrize("name", ["prog_gray", "prog_444"])
+def test_prog_dc_first_matches_plain_on_random_rows(cuda, name, symbols):
+    """Kernel 7 on its DC-first scan with the rows replaced by random
+    words: codes of 10-16 bits (prog_444's chroma table) and invalid
+    codes reach the maxcode walk after the lookahead, with one table
+    (prog_gray) or three scan components (prog_444). With random symbol
+    lists (lookahead tables rebuilt from them) sizes above 15 occur:
+    BADCODE, decoded as size 0."""
+    jpegs = [tpujpeg_torch.bitstream.parse(_read(name)) for _ in range(3)]
+    plan = _first_plan(jpegs, "dc_first")
+    g = torch.Generator().manual_seed(23)
+    _random_rows(plan, g)
+    if symbols == "random":
+        plan.huffval = torch.randint(0, 256, plan.huffval.shape, generator=g, dtype=torch.uint8)
+        plan.luts = _plan_luts(plan.tables, plan.huffval)
+    acs, dcs = wp.new_state(jpegs[0].frame, 3, cuda)
+    for d in dcs:
+        d.copy_(torch.randint(-(2**31), 2**31 - 1, d.shape, generator=g, dtype=torch.int32))
+    err = _step_kernel_and_plain(plan, acs, dcs)
+    assert bool((err & 1).any())  # BADCODE somewhere
+
+
+@pytest.mark.parametrize("al", [0, 1, 13])
+@pytest.mark.parametrize("band", [(1, 1), (1, 5), (3, 4), (6, 63), (1, 63)])
+def test_prog_ac_first_matches_plain_on_random_bands(cuda, band, al):
+    """Kernel 8 on random rows and a random state (half its values zero,
+    the others any int32) with bands the encoder's script does not use:
+    a band of one position, bands inside one 16-byte chunk of a block and
+    across chunks, the full band, and shifts whose adds wrap."""
+    jpegs = [tpujpeg_torch.bitstream.parse(_read("prog_gray")) for _ in range(2)]
+    plan = _first_plan(jpegs, "ac_first")
+    plan.ss, plan.se, plan.al = band[0], band[1], al
+    g = torch.Generator().manual_seed(100 * band[0] + band[1] + al)
+    _random_rows(plan, g)
+    acs, dcs = wp.new_state(jpegs[0].frame, 2, cuda)
+    vals = torch.randint(-(2**31), 2**31 - 1, acs[0].shape, generator=g, dtype=torch.int32)
+    vals[torch.rand(acs[0].shape, generator=g) < 0.5] = 0
+    acs[0].copy_(vals)
+    _step_kernel_and_plain(plan, acs, dcs)
+
+
+@pytest.mark.parametrize("kind", ["dc_first", "ac_first"])
+@pytest.mark.parametrize("name", ["prog_gray", "prog_444", "prog_rst_2048"])
+def test_prog_kernels_7_8_on_lanes_of_unequal_length(cuda, name, kind):
+    """Kernels 7 and 8 with each image's MCUs cut into lanes of 0 to 9
+    MCUs (random), so lanes of one warp and of neighbouring CTAs end
+    apart and lanes cross MCU rows, on the fixture's rows (lanes after
+    the first of a segment start mid-stream: garbage symbols, errors at
+    various points) and on random rows; one, three and (4:2:0) six
+    blocks per MCU."""
+    jpegs = [tpujpeg_torch.bitstream.parse(_read(name)) for _ in range(2)]
+    base = _first_plan(jpegs, kind)
+    total = int(base.lane_meta[base.lane_meta[:, 0] == 0, 2].sum())
+    rng = np.random.default_rng(7)
+    meta = []
+    for img in range(2):
+        first = 0
+        while first < total:
+            m = min(int(rng.integers(0, 10)), total - first)
+            meta.append((img, first, m))
+            first += m
+    L = len(meta)
+    assert L > 3 * 128
+    rows = rng.integers(0, base.n_lanes, size=L)
+    for bits in ("fixture", "random"):
+        plan = dataclasses.replace(
+            base, bits=base.bits[rows].contiguous(), seg_bits=base.seg_bits[rows].contiguous(),
+            lane_meta=torch.tensor(meta, dtype=torch.int32), n_mcus=max(m for _i, _f, m in meta))
+        if bits == "random":
+            _random_rows(plan, torch.Generator().manual_seed(5))
+        acs, dcs = wp.new_state(jpegs[0].frame, 2, cuda)
+        err = _step_kernel_and_plain(plan, acs, dcs)
+        assert bool(err.any()) and not bool(err.all())
+
+
+def test_prog_ac_first_refuses_misaligned_state(cuda):
+    """Kernel 8 copies its lookahead table as int4 words and its C entry
+    takes the state on a 16-byte boundary: a contiguous state view that
+    starts off one raises before launching, and the context stays
+    usable."""
+    jpegs = [tpujpeg_torch.bitstream.parse(_read("prog_gray"))]
+    plan = _first_plan(jpegs, "ac_first").to(cuda)
+    nb = plan.comp[0][3]
+    flat = torch.zeros(1 + nb * 64, dtype=torch.int32, device=cuda)
+    err = torch.zeros(plan.n_lanes, dtype=torch.int32, device=cuda)
+    before = build.LAUNCHES["prog_ac_first"]
+    with pytest.raises(ValueError, match="16-byte"):
+        wp.ac_first(plan, flat[1:].view(1, nb, 64), err)
+    assert build.LAUNCHES["prog_ac_first"] == before
+    wp.ac_first(plan, flat[: nb * 64].view(1, nb, 64), err)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["prog_ac_first"] == before + 1
+
+
+@pytest.mark.parametrize("name", PROGRESSIVE)
+def test_prog_plan_luts_on_card_equal_lookahead_table(cuda, name):
+    """Every kernel scan's lookahead tables, as the plan takes them to the
+    card, equal wavefront.lookahead_table of the scan components'
+    tables."""
+    jpegs = [tpujpeg_torch.bitstream.parse(_read(name))]
+    n = 0
+    for st in wp.plan_scans(jpegs):
+        if isinstance(st, wp.ScanPlan):
+            on_card = st.to(cuda).luts
+            assert on_card.device == cuda and on_card.data_ptr() % 16 == 0
+            assert torch.equal(on_card.cpu(), _plan_luts(st.tables, st.huffval))
+            n += on_card.shape[0]
+    assert n >= 5
+
+
 def test_prog_decode_on_card_matches_pil_hashes(cuda):
     """decode_all_scans_to_rgb_batch and decode(entropy_engine="wavefront")
     on the small progressive fixtures."""

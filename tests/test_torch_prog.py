@@ -86,3 +86,59 @@ def test_scan_kernels_plain_match_reference(case):
     kinds, errs = apply_both([make_jpeg(w, h, seed=13, progressive=True, **kw)], check_lanes=True)
     assert set(kinds) == {"dc_first", "dc_refine", "ac_first", "ac_refine"}, kinds
     assert not any(e.any() for e in errs)
+
+
+def _fixture(name):
+    import json
+    import os
+
+    fx = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tpujpeg_torch", "fixtures")
+    with open(os.path.join(fx, "manifest.json")) as f:
+        entry = json.load(f)["fixtures"][name]
+    with open(os.path.join(fx, entry["file"]), "rb") as f:
+        return f.read()
+
+
+@pytest.mark.parametrize("name", ["prog_gray", "prog_444"])
+def test_scan_plan_luts_equal_lookahead_table(name):
+    """Each kernel scan's plan carries, per scan component, the 9-bit
+    lookahead of that component's Huffman table (DC for a DC first scan,
+    AC otherwise), as wavefront.lookahead_table builds it."""
+    from tpujpeg_torch.kernels import wavefront as wf
+
+    port = [bitstream.parse(_fixture(name))]
+    n = 0
+    for k, scan in enumerate(port[0].scans):
+        kind = prog.scan_kind(scan)
+        if kind == "dc_refine":
+            continue
+        plan = prog.build_scan_plan(port, k)
+        assert plan.luts.dtype == torch.int16 and tuple(plan.luts.shape) == (scan.n_comps, 512)
+        for sp in range(scan.n_comps):
+            key = (0, scan.dc_ids[sp]) if kind == "dc_first" else (1, scan.ac_ids[sp])
+            want = wf.lookahead_table(wf.CanonTable.from_spec(scan.huff[key]))
+            assert torch.equal(plan.luts[sp].to(torch.int32), want), (k, sp)
+            n += 1
+    assert n >= 4
+
+
+@pytest.mark.parametrize("name", ["prog_gray", "prog_444"])
+def test_scan_plan_from_reference_equals_build_scan_plan(name):
+    """The reference's host planner (no kernel compiled) through
+    scan_plan_from_reference gives the port's plan field for field,
+    lookahead tables included."""
+    import dataclasses
+
+    data = _fixture(name)
+    ref, port = [ref_bitstream.parse(data)], [bitstream.parse(data)]
+    for k, scan in enumerate(port[0].scans):
+        if prog.scan_kind(scan) == "dc_refine":
+            continue
+        plan = prog.build_scan_plan(port, k)
+        same = prog.scan_plan_from_reference(ref_prog.ScanPlan(ref, k), port, k)
+        for f in dataclasses.fields(plan):
+            a, b = getattr(plan, f.name), getattr(same, f.name)
+            if isinstance(a, torch.Tensor):
+                assert a.dtype == b.dtype and torch.equal(a, b), (k, f.name)
+            else:
+                assert a == b, (k, f.name)

@@ -90,6 +90,44 @@ struct TjWords {
   }
 };
 
+// TjWords with 16-byte fills (kernels 7 and 8): q0, q1 hold words
+// 4cq .. 4cq + 7 of the row, loaded as two int4, for rows that start on a
+// 16-byte boundary with W % 4 == 0 (a quad then lies wholly inside the
+// row or wholly in the [W, P) gap). A lane of a few dozen symbols finds
+// its bits in the first two loads; a move to the next quad costs one
+// load, any other move two. Same window as tj_window for every cursor,
+// under the same at-most-32-bits-a-step rule as TjWords.
+struct TjWords16 {
+  const u32* row;
+  int W, P;
+  int cq;
+  uint4 q0, q1;
+
+  __device__ __forceinline__ uint4 load(int q) const {
+    const int i = (4 * q) & (P - 1);
+    return i < W ? __ldg((const uint4*)(row + i)) : make_uint4(0u, 0u, 0u, 0u);
+  }
+
+  __device__ __forceinline__ TjWords16(const u32* r, int W_, int P_) : row(r), W(W_), P(P_), cq(0) {
+    q0 = load(0);
+    q1 = load(1);
+  }
+
+  __device__ __forceinline__ u32 window(int cur) {
+    const int w = cur >> 5;
+    const int q = w >> 2;
+    if (q != cq) {
+      q0 = q == cq + 1 ? q1 : load(q);
+      q1 = load(q + 1);
+      cq = q;
+    }
+    const int j = w & 3;
+    const u32 hi = j == 0 ? q0.x : (j == 1 ? q0.y : (j == 2 ? q0.z : q0.w));
+    const u32 lo = j == 0 ? q0.y : (j == 1 ? q0.z : (j == 2 ? q0.w : q1.x));
+    return __funnelshift_l(lo, hi, cur & 31);
+  }
+};
+
 // Canonical decode: the shortest length l whose maxcode admits the peeked
 // code; length 17 (and huffval[0]) when none does. The walk starts at
 // length l0 (lengths below it are known not to admit the code).

@@ -35,22 +35,39 @@
 // k order whatever the chunking, so the two forms read the same bits.
 //
 // What bounds them on the H100: as for kernel A, the per-symbol dependency
-// chain of each thread (window, up to 16 maxcode compares, huffval load,
-// cursor update) and warp divergence between lanes of unequal length;
-// kernel 9 adds a 256-byte read of each block's band and, where a bit
-// changed it, a 256-byte write. The design keeps a lane's state in
-// registers and never leaves the lane's thread. Kernel 9 keeps nothing
-// in local memory: the band machine runs on 64-bit masks,
-// the block sits in registers between load and write-back, the window
-// comes from kernel A's two-word register cache (TjWords) and symbols
-// from a 9-bit lookahead table the CTA builds in shared memory. Sorting
-// lanes by length and warp-cooperative decode are later work.
+// chain of each thread (window, table lookup, cursor update) and warp
+// divergence between lanes of unequal length. Lanes are short (a few to a
+// few dozen symbols each, rows 128 bytes apart), so memory latency per
+// symbol and per-CTA set-up weigh more than arithmetic. The design keeps a
+// lane's state in registers and never leaves the lane's thread, and keeps
+// nothing in local memory:
+//  * the window comes from a register word cache: kernels 7 and 8 fill it
+//    with 16-byte loads (TjWords16: a lane's first 256 bits in two loads,
+//    one load per 128 bits after), kernel 9 word by word (TjWords), not
+//    two word loads per symbol;
+//  * symbols come from a 9-bit lookahead table per Huffman table
+//    (tj_decode_lookahead), the maxcode walk only from length 10. The
+//    tables come with the plan (ScanPlan.luts, built once per scan on the
+//    host by wavefront.lookahead_table) and each CTA copies them into
+//    shared memory with 16-byte loads;
+//  * kernel 7 keeps one predictor register per scan component, picked by
+//    selects (no array indexed at run time), and stages its DC values in
+//    shared memory a few MCUs at a time, so that each row run of them
+//    goes out in 16-byte stores, not one 4-byte store per block;
+//  * kernel 8 never waits on the state: a first scan gives each band
+//    position of a block at most one value (k only grows), which it adds
+//    into the state with a fire-and-forget RED (atomicAdd, result unused:
+//    the same wrapping int32 add, and no two lanes share a block);
+//  * kernel 9 adds a 256-byte read of each block's band and, where a bit
+//    changed it, a 256-byte write; the band machine runs on 64-bit masks
+//    and the block sits in registers between load and write-back.
+// Sorting lanes by length and warp-cooperative decode are later work.
 //
 // Semantics follow the reference's code, including on corrupt streams:
-//  * the window is the one tj_window gives (kernels 7 and 8 call it,
-//    kernel 9 reads it through TjWords): the reference's register pair
-//    never advances more than 32 bits at once, so it reads the same
-//    words, past the row's end included;
+//  * the window is the one tj_window gives (TjWords and TjWords16 return
+//    the same 32 bits for every cursor, past the row's end included): the
+//    reference's register pair never advances more than 32 bits at once,
+//    so it reads the same words;
 //  * error codes are assigned, not ORed (RUN overwrites BADCODE on the
 //    same symbol); TRUNC (cursor past seg_bits + 7 on a lane with MCUs)
 //    is ORed once, at the end; a lane with an error stops advancing;
@@ -80,9 +97,11 @@
 typedef unsigned long long u64;
 
 // The lane plan every progressive kernel takes (kernels/wavefront_prog
-// ScanPlan): rows of W words, P the power of two >= W; lane_meta [L][3]
-// (image, first MCU, MCUs); tables [n_sp][34] maxcode | valoffset and
-// huffval [n_sp][256] of the scan's components.
+// ScanPlan): rows of W words (W % 4 == 0, rows on 16-byte boundaries),
+// P the power of two >= W; lane_meta [L][3]
+// (image, first MCU, MCUs); tables [n_sp][34] maxcode | valoffset,
+// huffval [n_sp][256] and the 9-bit lookahead tables luts [n_sp][512] of
+// the scan's components, 16-byte aligned.
 struct ProgLanes {
   const u32* bits;
   int W, P;
@@ -91,6 +110,7 @@ struct ProgLanes {
   int L;
   const int* tables;
   const uint8_t* huffval;
+  const uint16_t* luts;
   int n_sp;
   int* err_out;
 };
@@ -98,6 +118,13 @@ struct ProgLanes {
 __device__ __forceinline__ void stage_tables(const ProgLanes& a, int* s_tab, uint8_t* s_hv) {
   for (int i = threadIdx.x; i < a.n_sp * 34; i += blockDim.x) s_tab[i] = a.tables[i];
   for (int i = threadIdx.x; i < a.n_sp * 256; i += blockDim.x) s_hv[i] = a.huffval[i];
+}
+
+// The plan's lookahead tables into shared memory, 16 bytes a thread
+// (1 KB, 64 int4, per table).
+__device__ __forceinline__ void stage_luts(const ProgLanes& a, uint16_t* s_lut) {
+  const int4* src = (const int4*)a.luts;
+  for (int i = threadIdx.x; i < a.n_sp * 64; i += blockDim.x) ((int4*)s_lut)[i] = __ldg(src + i);
 }
 
 __device__ __forceinline__ int lane_err(const ProgLanes& a, int lane, int err, int cur, int lm) {
@@ -117,48 +144,113 @@ struct DcFirstArgs {
   int* dc[TJ_PROG_MAX_SP];       // int32 [N, padded_blocks] DC column per scan component
 };
 
+// A lane stages the DC values of up to TJ_DC_CHUNK MCUs in shared memory
+// (int [TJ_DC_CHUNK * B][threads], value j of the chunk at row j), then
+// stores each (component, block row) run of them along the DC column's
+// row with 16-byte stores where the address allows: for 4:2:0 and 4 MCUs,
+// two 32-byte Y runs and one 16-byte run per chroma component, against
+// 24 scattered 4-byte stores. A run ends at the MCU row's end.
+#define TJ_DC_CHUNK 4
+
+__device__ __forceinline__ void store_dc_chunk(const DcFirstArgs& a, const int* s_comp,
+                                               const int* s_bidx, const int* vals, int img,
+                                               int cnt, int my, int mx) {
+  for (int sp = 0; sp < a.ln.n_sp; ++sp) {
+    const int* c = s_comp + sp * 4;
+    const int h = c[0], v = c[1];
+    int done = 0, y = my, x = mx;
+    while (done < cnt) {
+      const int run = min(cnt - done, a.mcus_x - x);  // MCUs left in this MCU row
+      const int n = run * h;
+      for (int dv = 0; dv < v; ++dv) {
+        int* dst = a.dc[sp] + (size_t)img * c[3] + (size_t)(y * v + dv) * c[2] + x * h;
+        const int* bix = s_bidx + (sp * 4 + dv) * 4;
+        int i = 0;
+        while (i < n) {
+          if ((((uintptr_t)(dst + i)) & 15u) == 0 && i + 4 <= n) {
+            int q[4];
+#pragma unroll
+            for (int t = 0; t < 4; ++t) {
+              const int j = i + t;
+              q[t] = vals[((done + j / h) * a.B + bix[j % h]) * TJ_PROG_THREADS];
+            }
+            *(int4*)(dst + i) = make_int4(q[0], q[1], q[2], q[3]);
+            i += 4;
+          } else {
+            dst[i] = vals[((done + i / h) * a.B + bix[i % h]) * TJ_PROG_THREADS];
+            ++i;
+          }
+        }
+      }
+      done += run;
+      x += run;
+      if (x == a.mcus_x) {
+        x = 0;
+        ++y;
+      }
+    }
+  }
+}
+
 __global__ void __launch_bounds__(TJ_PROG_THREADS) prog_dc_first_kernel(DcFirstArgs a) {
   __shared__ int s_tab[TJ_PROG_MAX_SP * 34];
   __shared__ uint8_t s_hv[TJ_PROG_MAX_SP * 256];
+  __shared__ __align__(16) uint16_t s_lut[TJ_PROG_MAX_SP * 512];
   __shared__ int s_blk[TJ_PROG_MAX_B * 3];
   __shared__ int s_comp[TJ_PROG_MAX_SP * 4];
+  __shared__ int s_bidx[TJ_PROG_MAX_SP * 4 * 4];  // block of (sp, dv, dh) in an MCU
+  extern __shared__ int s_out[];                  // [TJ_DC_CHUNK * B][threads]
   stage_tables(a.ln, s_tab, s_hv);
+  stage_luts(a.ln, s_lut);
   for (int i = threadIdx.x; i < a.B * 3; i += blockDim.x) s_blk[i] = a.blk[i / 3][i % 3];
   for (int i = threadIdx.x; i < a.ln.n_sp * 4; i += blockDim.x) s_comp[i] = a.comp[i / 4][i % 4];
+  for (int i = threadIdx.x; i < a.B; i += blockDim.x)
+    s_bidx[(a.blk[i][0] * 4 + a.blk[i][1]) * 4 + a.blk[i][2]] = i;
   __syncthreads();
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= a.ln.L) return;
 
-  const int W = a.ln.W, P = a.ln.P;
-  const u32* row = a.ln.bits + (size_t)lane * W;
+  TjWords16 words(a.ln.bits + (size_t)lane * a.ln.W, a.ln.W, a.ln.P);
   const int img = a.ln.lane_meta[lane * 3 + 0];
   const int first = a.ln.lane_meta[lane * 3 + 1];
   const int lm = a.ln.lane_meta[lane * 3 + 2];
+  int my = first / a.mcus_x;
+  int mx = first - my * a.mcus_x;
+  int* vals = s_out + threadIdx.x;
   int cur = 0, err = 0;
-  u32 pred[TJ_PROG_MAX_SP] = {0u, 0u, 0u, 0u};
-  for (int m = 0; m < lm; ++m) {
-    const int g = first + m;
-    const int my = g / a.mcus_x;
-    const int mx = g - my * a.mcus_x;
-    for (int b = 0; b < a.B; ++b) {
+  // One predictor per scan component, in registers: sp picks by selects.
+  u32 p0 = 0u, p1 = 0u, p2 = 0u, p3 = 0u;
+  for (int m0 = 0; m0 < lm; m0 += TJ_DC_CHUNK) {
+    const int cnt = min(TJ_DC_CHUNK, lm - m0);
+    for (int j = 0, b = 0; j < cnt * a.B; ++j, b = b + 1 == a.B ? 0 : b + 1) {
       const int sp = s_blk[b * 3 + 0];
-      const int* tb = s_tab + sp * 34;
       int out = 0;
       if (err == 0) {
-        const u32 win = tj_window(row, cur, W, P);
+        // A step moves the cursor by at most 32 bits (a code of at most
+        // 17 bits, then at most 15 value bits), as TjWords16 needs.
+        const u32 win = words.window(cur);
+        const int* tb = s_tab + sp * 34;
         int t, dlen;
-        tj_decode_symbol(win, tb, tb + 17, s_hv + sp * 256, t, dlen);
+        tj_decode_lookahead(win, s_lut + sp * 512, tb, tb + 17, s_hv + sp * 256, t, dlen);
         const bool bad = dlen > 16 || t > 15;
         if (t > 15) t = 0;
-        pred[sp] += (u32)tj_receive_extend(win, dlen, t);
+        u32 pred = sp == 0 ? p0 : (sp == 1 ? p1 : (sp == 2 ? p2 : p3));
+        pred += (u32)tj_receive_extend(win, dlen, t);
+        p0 = sp == 0 ? pred : p0;
+        p1 = sp == 1 ? pred : p1;
+        p2 = sp == 2 ? pred : p2;
+        p3 = sp == 3 ? pred : p3;
         cur += dlen + t;
-        out = (int)(pred[sp] << a.al);
+        out = (int)(pred << a.al);
         if (bad) err = TJ_ERR_BADCODE;
       }
-      const int* c = s_comp + sp * 4;
-      const int brow = my * c[1] + s_blk[b * 3 + 1];
-      const int bcol = mx * c[0] + s_blk[b * 3 + 2];
-      a.dc[sp][(size_t)img * c[3] + (size_t)brow * c[2] + bcol] = out;
+      vals[j * TJ_PROG_THREADS] = out;
+    }
+    store_dc_chunk(a, s_comp, s_bidx, vals, img, cnt, my, mx);
+    mx += cnt;
+    while (mx >= a.mcus_x) {
+      mx -= a.mcus_x;
+      ++my;
     }
   }
   a.ln.err_out[lane] = lane_err(a.ln, lane, err, cur, lm);
@@ -184,16 +276,18 @@ __device__ __forceinline__ int* block_of(const AcArgs& a, int img, int g) {
 __global__ void __launch_bounds__(TJ_PROG_THREADS) prog_ac_first_kernel(AcArgs a) {
   __shared__ int s_tab[34];
   __shared__ uint8_t s_hv[256];
+  __shared__ __align__(16) uint16_t s_lut[512];
   stage_tables(a.ln, s_tab, s_hv);
+  stage_luts(a.ln, s_lut);
   __syncthreads();
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= a.ln.L) return;
 
-  const int W = a.ln.W, P = a.ln.P;
-  const u32* row = a.ln.bits + (size_t)lane * W;
+  TjWords16 words(a.ln.bits + (size_t)lane * a.ln.W, a.ln.W, a.ln.P);
   const int img = a.ln.lane_meta[lane * 3 + 0];
   const int first = a.ln.lane_meta[lane * 3 + 1];
   const int lm = a.ln.lane_meta[lane * 3 + 2];
+  const int ss = a.ss, se = a.se;
   int cur = 0, err = 0, eob = 0;
   for (int m = 0; m < lm && err == 0; ++m) {
     if (eob > 0) {
@@ -201,17 +295,20 @@ __global__ void __launch_bounds__(TJ_PROG_THREADS) prog_ac_first_kernel(AcArgs a
       continue;
     }
     int* blk = block_of(a, img, first + m);
-    int k = a.ss;
-    while (k <= a.se && err == 0) {
-      const u32 win = tj_window(row, cur, W, P);
+    int k = ss;
+    while (k <= se) {
+      // A step moves the cursor by at most 32 bits (a code of at most 17
+      // bits, then at most 15 value bits or 14 EOBr bits), as TjWords16
+      // needs.
+      const u32 win = words.window(cur);
       int rs, alen;
-      tj_decode_symbol(win, s_tab, s_tab + 17, s_hv, rs, alen);
+      tj_decode_lookahead(win, s_lut, s_tab, s_tab + 17, s_hv, rs, alen);
       const int r = rs >> 4, s = rs & 15;
       if (alen > 16) err = TJ_ERR_BADCODE;
       if (s > 0) {
         const int nk = k + r;
-        if (nk <= a.se)
-          blk[nk] = (int)((u32)blk[nk] + ((u32)tj_receive_extend(win, alen, s) << a.al));
+        if (nk <= se)  // RED: nothing waits on the add
+          atomicAdd(blk + nk, (int)((u32)tj_receive_extend(win, alen, s) << a.al));
         else
           err = TJ_ERR_RUN;
         cur += alen + s;
@@ -224,6 +321,7 @@ __global__ void __launch_bounds__(TJ_PROG_THREADS) prog_ac_first_kernel(AcArgs a
         cur += alen;
         k += 16;
       }
+      if (err) break;
     }
   }
   a.ln.err_out[lane] = lane_err(a.ln, lane, err, cur, lm);
@@ -264,11 +362,9 @@ __device__ __forceinline__ u64 refine_bits(TjWords& words, int& cur, u64 r) {
 __global__ void __launch_bounds__(TJ_PROG_THREADS) prog_ac_refine_kernel(AcArgs a) {
   __shared__ int s_tab[34];
   __shared__ uint8_t s_hv[256];
-  __shared__ uint16_t s_lut[512];
+  __shared__ __align__(16) uint16_t s_lut[512];
   stage_tables(a.ln, s_tab, s_hv);
-  __syncthreads();
-  for (int i = threadIdx.x; i < 512; i += blockDim.x)
-    s_lut[i] = tj_lookahead_entry(i, s_tab, s_tab + 17, s_hv);
+  stage_luts(a.ln, s_lut);
   __syncthreads();
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= a.ln.L) return;
@@ -370,29 +466,38 @@ __global__ void __launch_bounds__(TJ_PROG_THREADS) prog_ac_refine_kernel(AcArgs 
 // tj_prog_dc_first, which are host int32 arrays read at launch.
 // ---------------------------------------------------------------------------
 
+static bool aligned16(const void* p) { return p && ((uintptr_t)p & 15u) == 0; }
+
 static bool lanes_ok(const ProgLanes& l) {
-  return l.W > 0 && l.P >= l.W && (l.P & (l.P - 1)) == 0 && l.n_sp > 0 && l.n_sp <= TJ_PROG_MAX_SP;
+  return l.W > 0 && l.W % 4 == 0 && aligned16(l.bits) && l.P >= l.W && (l.P & (l.P - 1)) == 0 &&
+         l.n_sp > 0 && l.n_sp <= TJ_PROG_MAX_SP;
 }
 
 static int blocks_for(int L) { return (L + TJ_PROG_THREADS - 1) / TJ_PROG_THREADS; }
 
+// luts: uint16 [n_sp][512] lookahead tables (wavefront.lookahead_table),
+// 16-byte aligned.
 extern "C" int tj_prog_dc_first(const void* bits, int W, int P, const void* seg_bits,
                                 const void* lane_meta, int L, const void* tables,
-                                const void* huffval, int n_sp, const int* blk, int B,
-                                const int* comp, int mcus_x, int al, void* d0, void* d1, void* d2,
-                                void* d3, void* err, void* stream) {
+                                const void* huffval, const void* luts, int n_sp, const int* blk,
+                                int B, const int* comp, int mcus_x, int al, void* d0, void* d1,
+                                void* d2, void* d3, void* err, void* stream) {
   if (L <= 0) return (int)cudaSuccess;
   DcFirstArgs a{};
   a.ln = ProgLanes{(const u32*)bits, W, P, (const int*)seg_bits, (const int*)lane_meta, L,
-                   (const int*)tables, (const uint8_t*)huffval, n_sp, (int*)err};
-  if (!lanes_ok(a.ln) || B <= 0 || B > TJ_PROG_MAX_B || mcus_x <= 0 || al < 0 || al > 15)
+                   (const int*)tables, (const uint8_t*)huffval, (const uint16_t*)luts, n_sp,
+                   (int*)err};
+  if (!lanes_ok(a.ln) || !aligned16(luts) || B <= 0 || B > TJ_PROG_MAX_B || mcus_x <= 0 ||
+      al < 0 || al > 15)
     return (int)cudaErrorInvalidValue;
   a.B = B;
   a.mcus_x = mcus_x;
   a.al = al;
   for (int b = 0; b < B; ++b) {
     for (int i = 0; i < 3; ++i) a.blk[b][i] = blk[b * 3 + i];
-    if (a.blk[b][0] < 0 || a.blk[b][0] >= n_sp) return (int)cudaErrorInvalidValue;
+    if (a.blk[b][0] < 0 || a.blk[b][0] >= n_sp || a.blk[b][1] < 0 || a.blk[b][1] > 3 ||
+        a.blk[b][2] < 0 || a.blk[b][2] > 3)
+      return (int)cudaErrorInvalidValue;
   }
   for (int s = 0; s < n_sp; ++s)
     for (int i = 0; i < 4; ++i) a.comp[s][i] = comp[s * 4 + i];
@@ -401,20 +506,23 @@ extern "C" int tj_prog_dc_first(const void* bits, int W, int P, const void* seg_
     if (!dcs[s]) return (int)cudaErrorInvalidValue;
     a.dc[s] = (int*)dcs[s];
   }
-  prog_dc_first_kernel<<<blocks_for(L), TJ_PROG_THREADS, 0, (cudaStream_t)stream>>>(a);
+  prog_dc_first_kernel<<<blocks_for(L), TJ_PROG_THREADS,
+                         sizeof(int) * TJ_DC_CHUNK * B * TJ_PROG_THREADS, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 static int launch_ac(bool refine, const void* bits, int W, int P, const void* seg_bits,
                      const void* lane_meta, int L, const void* tables, const void* huffval,
-                     int width_blocks, int padded_wb, int padded_blocks, int ss, int se, int al,
-                     void* state, void* err, void* stream) {
+                     const void* luts, int width_blocks, int padded_wb, int padded_blocks, int ss,
+                     int se, int al, void* state, void* err, void* stream) {
   if (L <= 0) return (int)cudaSuccess;
   AcArgs a{};
   a.ln = ProgLanes{(const u32*)bits, W, P, (const int*)seg_bits, (const int*)lane_meta, L,
-                   (const int*)tables, (const uint8_t*)huffval, 1, (int*)err};
-  if (!lanes_ok(a.ln) || width_blocks <= 0 || padded_wb < width_blocks || padded_blocks <= 0 ||
-      ss < 1 || se < ss || se > 63 || al < 0 || al > 15 || !state)
+                   (const int*)tables, (const uint8_t*)huffval, (const uint16_t*)luts, 1,
+                   (int*)err};
+  if (!lanes_ok(a.ln) || !aligned16(luts) || width_blocks <= 0 ||
+      padded_wb < width_blocks || padded_blocks <= 0 || ss < 1 || se < ss || se > 63 || al < 0 ||
+      al > 15 || !aligned16(state))
     return (int)cudaErrorInvalidValue;
   a.width_blocks = width_blocks;
   a.padded_wb = padded_wb;
@@ -431,24 +539,24 @@ static int launch_ac(bool refine, const void* bits, int W, int P, const void* se
 }
 
 // Kernel 8: state is the int32 [N, padded_blocks, 64] AC array of the
-// scan's component; a lane's MCU g is block (g / width_blocks,
-// g % width_blocks) of the padded grid.
+// scan's component, on a 16-byte boundary; a lane's MCU g is block
+// (g / width_blocks, g % width_blocks) of the padded grid. luts: the
+// component's uint16 [512] lookahead table, 16-byte aligned.
 extern "C" int tj_prog_ac_first(const void* bits, int W, int P, const void* seg_bits,
                                 const void* lane_meta, int L, const void* tables,
-                                const void* huffval, int width_blocks, int padded_wb,
-                                int padded_blocks, int ss, int se, int al, void* state, void* err,
-                                void* stream) {
-  return launch_ac(false, bits, W, P, seg_bits, lane_meta, L, tables, huffval, width_blocks,
+                                const void* huffval, const void* luts, int width_blocks,
+                                int padded_wb, int padded_blocks, int ss, int se, int al,
+                                void* state, void* err, void* stream) {
+  return launch_ac(false, bits, W, P, seg_bits, lane_meta, L, tables, huffval, luts, width_blocks,
                    padded_wb, padded_blocks, ss, se, al, state, err, stream);
 }
 
-// Kernel 9: as kernel 8; state must start on a 16-byte boundary (each
-// block moves as 16 int4 words).
+// Kernel 9: as kernel 8 (each block moves as 16 int4 words).
 extern "C" int tj_prog_ac_refine(const void* bits, int W, int P, const void* seg_bits,
                                  const void* lane_meta, int L, const void* tables,
-                                 const void* huffval, int width_blocks, int padded_wb,
-                                 int padded_blocks, int ss, int se, int al, void* state, void* err,
-                                 void* stream) {
-  return launch_ac(true, bits, W, P, seg_bits, lane_meta, L, tables, huffval, width_blocks,
+                                 const void* huffval, const void* luts, int width_blocks,
+                                 int padded_wb, int padded_blocks, int ss, int se, int al,
+                                 void* state, void* err, void* stream) {
+  return launch_ac(true, bits, W, P, seg_bits, lane_meta, L, tables, huffval, luts, width_blocks,
                    padded_wb, padded_blocks, ss, se, al, state, err, stream);
 }

@@ -685,12 +685,14 @@ LOOKAHEAD_BITS = 9
 
 
 def lookahead_table(table: CanonTable) -> torch.Tensor:
-    """Kernels A, 2 and 9's 9-bit lookahead for one Huffman table (the rule
-    of ``tj_lookahead_entry``, csrc/common.cuh), int32 [512]: entry p, for
-    a window whose top nine bits are p, is (length << 8) | symbol for the
-    shortest length l <= 9 whose maxcode admits the window's l-bit prefix
-    (the symbol index clamped to 0..255, as ``_decode_symbol`` clamps it),
-    else 0: the decode then walks the maxcodes from length 10."""
+    """The kernels' 9-bit lookahead for one Huffman table (the rule of
+    ``tj_lookahead_entry``, csrc/common.cuh, which kernels A and 2 build
+    per CTA; kernels 7-9 take this table from their plan), int32 [512]:
+    entry p, for a window whose top nine bits are p, is (length << 8) |
+    symbol for the shortest length l <= 9 whose maxcode admits the
+    window's l-bit prefix (the symbol index clamped to 0..255, as
+    ``_decode_symbol`` clamps it), else 0: the decode then walks the
+    maxcodes from length 10."""
     p = torch.arange(1 << LOOKAHEAD_BITS, dtype=torch.int64)
     hv = torch.tensor(table.huffval, dtype=torch.int64)
     out = torch.zeros_like(p)

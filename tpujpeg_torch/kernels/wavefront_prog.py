@@ -26,7 +26,9 @@ stores pred << Al into the DC columns, kernel 8 adds val << Al into the
 band (the reference adds its block into the state), kernel 9 rewrites the
 band of each block in place. Lanes are a flat [L] axis (no [G, 8, K]
 groups) and tables are runtime data (the reference's baked/table-dynamic
-split collapses into one form, so its ``dyn`` has no counterpart). The
+split collapses into one form, so its ``dyn`` has no counterpart); each
+plan carries its tables' 9-bit lookahead (``ScanPlan.luts``), built once
+per scan on the host, which the kernels copy into shared memory. The
 planner keeps the reference's limits (the W rule, ``MAX_WORDS``, the
 one-segment scan over 2040 bytes) so that both decoders accept and
 reject the same streams.
@@ -47,6 +49,7 @@ they launch the kernel or raise.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -140,6 +143,7 @@ class ScanPlan:
     lane_meta: torch.Tensor  # int32 [L, 3] (image, first MCU, MCUs)
     tables: torch.Tensor     # int32 [n_sp, 34] maxcode[17] | valoffset[17]
     huffval: torch.Tensor    # uint8 [n_sp, 256]
+    luts: torch.Tensor       # int16 [n_sp, 512] 9-bit lookahead (wavefront.lookahead_table)
     comp_indices: Tuple[int, ...]                 # frame component per scan component
     blk: Tuple[Tuple[int, int, int], ...]         # (scan component, dv, dh) per block of an MCU
     comp: Tuple[Tuple[int, int, int, int], ...]   # (h, v, padded_wb, padded_blocks) per scan component
@@ -166,8 +170,15 @@ class ScanPlan:
         return dataclasses.replace(
             self, bits=self.bits.to(device), seg_bits=self.seg_bits.to(device),
             lane_meta=self.lane_meta.to(device), tables=self.tables.to(device),
-            huffval=self.huffval.to(device),
+            huffval=self.huffval.to(device), luts=self.luts.to(device),
         )
+
+
+@functools.lru_cache(maxsize=64)
+def _lookahead(table: wf.CanonTable) -> torch.Tensor:
+    """A table's 9-bit lookahead as kernels 7-9 take it (int16: entries are
+    at most (9 << 8) | 255), built once per distinct table."""
+    return wf.lookahead_table(table).to(torch.int16)
 
 
 def _scan_fields(jpegs, k: int) -> dict:
@@ -194,6 +205,7 @@ def _scan_fields(jpegs, k: int) -> dict:
         kind=kind,
         tables=torch.tensor([list(t.maxcode) + list(t.valoffset) for t in tbls], dtype=torch.int32),
         huffval=torch.tensor([list(t.huffval) for t in tbls], dtype=torch.uint8),
+        luts=torch.stack([_lookahead(t) for t in tbls]),
         comp_indices=cis, blk=blk, comp=comp, mcus_x=mcus_x,
         ss=scan.ss, se=scan.se, al=scan.al, n_images=len(jpegs),
     )
@@ -466,7 +478,7 @@ def ac_refine_plain(plan: ScanPlan, state: torch.Tensor, err: torch.Tensor) -> N
 def _lane_specs(plan: ScanPlan, err: torch.Tensor):
     return [(plan.bits, torch.int32, 2), (plan.seg_bits, torch.int32, 1),
             (plan.lane_meta, torch.int32, 2), (plan.tables, torch.int32, 2),
-            (plan.huffval, torch.uint8, 2), (err, torch.int32, 1)]
+            (plan.huffval, torch.uint8, 2), (plan.luts, torch.int16, 2), (err, torch.int32, 1)]
 
 
 def _check_state(name: str, t: torch.Tensor, shape: Tuple[int, ...]) -> None:
@@ -487,7 +499,7 @@ def _row_args(plan: ScanPlan):
     W = plan.n_words
     return (plan.bits.data_ptr(), W, 1 << max(W - 1, 1).bit_length(),
             plan.seg_bits.data_ptr(), plan.lane_meta.data_ptr(), plan.n_lanes,
-            plan.tables.data_ptr(), plan.huffval.data_ptr())
+            plan.tables.data_ptr(), plan.huffval.data_ptr(), plan.luts.data_ptr())
 
 
 def dc_first(plan: ScanPlan, dcs: Sequence[torch.Tensor], err: torch.Tensor, *,
@@ -507,14 +519,15 @@ def dc_first(plan: ScanPlan, dcs: Sequence[torch.Tensor], err: torch.Tensor, *,
     if _plain_or_launch("prog_dc_first", dev, plain):
         return dc_first_plain(plan, cols, err)
     build.check_args("prog_dc_first", dev, _lane_specs(plan, err) + [(c, torch.int32, 2) for c in cols])
+    build.check_aligned("prog_dc_first", [plan.bits, plan.luts])  # read as int4
     if len(plan.blk) > 10 or len(cols) > 4:
         raise ValueError(f"prog_dc_first: {len(plan.blk)} blocks per MCU, {len(cols)} components")
     blk = np.ascontiguousarray(plan.blk, dtype=np.int32)
     comp = np.ascontiguousarray(plan.comp, dtype=np.int32)
     ptrs = [c.data_ptr() for c in cols] + [None] * (4 - len(cols))
     rc = build.get_lib().tj_prog_dc_first(
-        *_row_args(plan), len(cols), blk.ctypes.data, len(plan.blk), comp.ctypes.data,
-        plan.mcus_x, plan.al, *ptrs, err.data_ptr(), build.stream_of(dev))
+        *_row_args(plan), len(cols), blk.ctypes.data, len(plan.blk),
+        comp.ctypes.data, plan.mcus_x, plan.al, *ptrs, err.data_ptr(), build.stream_of(dev))
     build.raise_on_error(rc, "prog_dc_first")
     build.LAUNCHES["prog_dc_first"] += 1
 
@@ -522,8 +535,10 @@ def dc_first(plan: ScanPlan, dcs: Sequence[torch.Tensor], err: torch.Tensor, *,
 def _launch_ac(name: str, plan: ScanPlan, state: torch.Tensor, err: torch.Tensor) -> None:
     dev = plan.bits.device
     build.check_args(name, dev, _lane_specs(plan, err) + [(state, torch.int32, 3)])
-    if name == "prog_ac_refine":
-        build.check_aligned(name, [state])  # each block moves as 16 int4
+    # Kernel 9 moves each block as 16 int4, both read their tables as
+    # int4 and kernel 8 its rows; the C entries refuse them off a 16-byte
+    # boundary.
+    build.check_aligned(name, [state, plan.bits, plan.luts])
     _h, _v, pwb, nb = plan.comp[0]
     rc = getattr(build.get_lib(), "tj_" + name)(
         *_row_args(plan), plan.mcus_x, pwb, nb, plan.ss, plan.se, plan.al,
@@ -534,8 +549,8 @@ def _launch_ac(name: str, plan: ScanPlan, state: torch.Tensor, err: torch.Tensor
 
 def ac_first(plan: ScanPlan, state: torch.Tensor, err: torch.Tensor, *, plain: bool = False) -> None:
     """Kernel 8: an AC first scan added into state, the int32
-    [N, padded_blocks, 64] AC array of the scan's component. err: int32
-    [L] out."""
+    [N, padded_blocks, 64] AC array of the scan's component (on the card,
+    starting on a 16-byte boundary). err: int32 [L] out."""
     _check_state("prog_ac_first", state, (plan.n_images, plan.comp[0][3], 64))
     if _plain_or_launch("prog_ac_first", plan.bits.device, plain):
         return ac_first_plain(plan, state, err)

@@ -17,6 +17,14 @@ of that plan, cropped to the image, and random 32 x 2048^2 planes from a
 fixed seed (the kernel_timing_ab planes of chip_smoke.py). It uses only
 entry points that every checkout since the planar kernels has.
 
+Every kernel is timed two ways in the same process. ``ms``: the card
+sleeps (torch.cuda._sleep) before the start event until every launch of
+the window is queued, so the window holds device time only
+(``device_ms``). ``ms_wrapper``: the window opens on an idle card, so it
+also holds the host's time in the Python wrapper wherever that is longer
+than the kernel (the method of chip_smoke.py before the sleep, kept for
+comparison with earlier figures).
+
 Each process prints one JSON line: its tree, the ms per kernel, nvcc's
 -Xptxas -v report of the build, the SASS instruction count of each
 kernel in the built library (cuobjdump -sass: all instructions but NOP,
@@ -25,7 +33,7 @@ A's planes, kernel 2's coefficients, the progressive state after all
 scans, each color kernel's RGB on each input). The parent process checks that
 the digests of every tree agree, then prints the card's name and power
 limit and one summary line (per tree, per kernel: every run's ms and
-their median; the ptxas report, parsed here or, for a library built
+ms_wrapper and their medians; the ptxas report, parsed here or, for a library built
 before the run, the tree's saved one; the SASS counts), and writes all
 of it to --out. Needs a CUDA card and nvcc; exits non-zero without.
 """
@@ -42,6 +50,7 @@ import re
 import statistics
 import subprocess
 import sys
+import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 BATCH = 32
@@ -68,6 +77,61 @@ def sass_counts(lib: str, cuobjdump: str) -> dict:
         if m and ops is not None and m.group(1) != "NOP":
             ops[m.group(1)] = ops.get(m.group(1), 0) + 1
     return {k: {"instructions": sum(v.values()), "opcodes": dict(sorted(v.items()))} for k, v in counts.items()}
+
+
+_cycles_per_ms = None
+
+
+def device_ms(torch, fn, reps, restore=None):
+    """Mean device time of fn() over `reps` launches, with the host's work
+    in the wrapper kept out of the window: before the start event the card
+    sleeps until every launch of the window is queued. The launches run
+    back to back in one window or, with `restore` (called before each
+    launch, outside the window, e.g. to reset the state a launch
+    changes), one launch per window. A window whose sleep ended before
+    the host had queued its launches is run again with twice the sleep.
+    fn must not synchronize."""
+    global _cycles_per_ms
+    if _cycles_per_ms is None:
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        e0.record()
+        torch.cuda._sleep(1 << 21)
+        e1.record()
+        torch.cuda.synchronize()
+        _cycles_per_ms = (1 << 21) / e0.elapsed_time(e1)
+    if restore:
+        restore()
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    per_window = 1 if restore else reps
+    sleep_ms = 2 * host_ms * per_window + 0.05
+    total = 0.0
+    for _ in range(reps // per_window):
+        for _try in range(10):
+            if restore:
+                restore()
+            torch.cuda.synchronize()
+            e0, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+            t0 = time.perf_counter()
+            e0.record()
+            torch.cuda._sleep(int(sleep_ms * _cycles_per_ms))
+            start.record()
+            for _ in range(per_window):
+                fn()
+            queued_ms = (time.perf_counter() - t0) * 1e3
+            end.record()
+            torch.cuda.synchronize()
+            if e0.elapsed_time(start) > 1.1 * queued_ms:
+                break
+            sleep_ms *= 2
+        else:
+            raise RuntimeError(f"the card's sleep never outlasted the host's launches ({queued_ms} ms)")
+        total += start.elapsed_time(end)
+    return total / reps
 
 
 def run_one(tree: str, reps: int) -> dict:
@@ -100,31 +164,44 @@ def run_one(tree: str, reps: int) -> dict:
             data = f.read()
         return [tpujpeg_torch.bitstream.parse(data) for _ in range(BATCH)]
 
-    def cuda_ms(fn):
+    def wrapper_ms(fn, restore=None):
+        """The window opens on an idle card: host wrapper time included."""
         fn()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
+        times = []
+        for _ in range(reps if restore else 1):
+            if restore:
+                restore()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(1 if restore else reps):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return sum(times) / reps
 
-    ms, digests = {}, {}
+    ms, ms_wrapper, digests = {}, {}, {}
+
+    def timed(name, fn, restore=None):
+        t = device_ms(torch, fn, reps, restore)
+        ms[name] = ms.get(name, 0.0) + t
+        ms_wrapper[name] = ms_wrapper.get(name, 0.0) + wrapper_ms(fn, restore)
+        return t
+
     jpegs = parsed("420_2048")
     plan = wf.build_block_plan(jpegs).to(dev)
     layout = wf.PlaneLayout.of(wf.ImageGeom.of(jpegs[0]))
     err = torch.zeros(plan.n_lanes, dtype=torch.int32, device=dev)
     planes = layout.alloc(BATCH, dev)
-    ms["wavefront_pixels"] = cuda_ms(lambda: wf._launch_wavefront(plan, layout, planes, err))
+    timed("wavefront_pixels", lambda: wf._launch_wavefront(plan, layout, planes, err))
     digests["wavefront_pixels"] = _digest(planes + [err])
     coeffs = layout.alloc(BATCH, dev, "coeff")
-    ms["wavefront_coeff"] = cuda_ms(lambda: wf._launch_wavefront(plan, layout, coeffs, err, "coeff"))
+    timed("wavefront_coeff", lambda: wf._launch_wavefront(plan, layout, coeffs, err, "coeff"))
     digests["wavefront_coeff"] = _digest(coeffs + [err])
     frame = jpegs[0].frame
     qtabs = [torch.from_numpy(jpegs[0].qtables[c.tq].astype("int32")).to(dev) for c in frame.components]
-    ms["dequant_idct_islow"] = cuda_ms(lambda: [
+    timed("dequant_idct_islow", lambda: [
         idct.dequant_idct_islow(c, q, fc.padded_hb, fc.padded_wb)
         for c, q, fc in zip(coeffs, qtabs, frame.components)])
     del coeffs
@@ -138,16 +215,15 @@ def run_one(tree: str, reps: int) -> dict:
     for label, ins in color_inputs.items():
         for kname, fn in (("upsample_color_h2v2", sc.upsample_color_h2v2),
                           ("upsample_color_h2v2_planar", sc.upsample_color_h2v2_packed)):
-            ms[f"{kname}/{label}"] = cuda_ms(lambda fn=fn, ins=ins: fn(*ins))
+            timed(f"{kname}/{label}", lambda fn=fn, ins=ins: fn(*ins))
             digests[f"{kname}/{label}"] = _digest([fn(*ins)])
     del planes, color_inputs
 
     pjpegs = parsed("prog_rst_2048")
     acs, dcs = wp.new_state(pjpegs[0].frame, BATCH, dev)
     kernel = {"dc_first": "prog_dc_first", "ac_first": "prog_ac_first", "ac_refine": "prog_ac_refine"}
-    for k in kernel.values():
-        ms[k] = 0.0
-    for step in wp.plan_scans(pjpegs):
+    scan_ms = {}
+    for k, step in enumerate(wp.plan_scans(pjpegs)):
         if isinstance(step, wp.DcRefine):
             wp.apply_step(step, acs, dcs)
             continue
@@ -155,33 +231,26 @@ def run_one(tree: str, reps: int) -> dict:
         target = dcs if step.kind == "dc_first" else [acs[step.comp_indices[0]]]
         before = [t.clone() for t in target]
         serr = torch.zeros(step.n_lanes, dtype=torch.int32, device=dev)
-        if step.kind != "ac_refine":
-            # Kernels 7 and 8 do the same work from any state (7 stores,
-            # 8 adds), so their launches are timed back to back.
-            launch = (lambda: wp.dc_first(step, target, serr)) if step.kind == "dc_first" else (
-                lambda: wp.ac_first(step, target[0], serr))
-            ms[kernel[step.kind]] += cuda_ms(launch)
+        launch = {"dc_first": lambda: wp.dc_first(step, target, serr),
+                  "ac_first": lambda: wp.ac_first(step, target[0], serr),
+                  "ac_refine": lambda: wp.ac_refine(step, target[0], serr)}[step.kind]
+
+        def restore():
             for t, b in zip(target, before):
                 t.copy_(b)
-            launch()
-            continue
-        times = []
-        for _ in range(reps):
-            for t, b in zip(target, before):
-                t.copy_(b)
-            torch.cuda.synchronize()
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            wp.ac_refine(step, target[0], serr)
-            end.record()
-            torch.cuda.synchronize()
-            times.append(start.elapsed_time(end))
+
+        # Kernels 7 and 8 do the same work from any state (7 stores, 8
+        # adds), so their launches are timed back to back.
+        scan_ms[f"{kernel[step.kind]}/scan{k}"] = timed(
+            kernel[step.kind], launch, restore if step.kind == "ac_refine" else None)
+        restore()
+        launch()
         if serr.any():
             raise RuntimeError(f"{kernel[step.kind]}: error bits on a clean stream")
-        ms[kernel[step.kind]] += statistics.mean(times)
     digests["progressive_state"] = _digest(acs + dcs)
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
-    return dict(tree=tree, ms=ms, digests=digests, ptxas_text=ptxas,
+    ms.update(scan_ms)
+    return dict(tree=tree, ms=ms, ms_wrapper=ms_wrapper, digests=digests, ptxas_text=ptxas,
                 ptxas_saved=None if ptxas else build.ptxas_report(),
                 sass=sass_counts(build.library_path(), cuobjdump), device=torch.cuda.get_device_name(0))
 
@@ -206,13 +275,15 @@ def main() -> int:
 
     trees = args.tree or [os.path.dirname(os.path.dirname(HERE))]
     order = [int(i) for i in args.order.split(",")] if args.order else list(range(len(trees)))
-    lines, runs = [], []
+    lines, runs, failed = [], [], []
     for i in order:
         res = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", trees[i],
                               "--reps", str(args.reps)], capture_output=True, text=True)
         if res.returncode != 0:
-            print(res.stdout, res.stderr, file=sys.stderr)
-            return 1
+            # Go on with the other trees; the exit code says it failed.
+            print(f"{trees[i]} failed:", res.stdout[-4000:], res.stderr[-4000:], file=sys.stderr)
+            failed.append(trees[i])
+            continue
         run = json.loads(res.stdout.strip().splitlines()[-1])
         run["label"] = trees[i]
         runs.append(run)
@@ -223,21 +294,23 @@ def main() -> int:
 
     summary = {}
     for run in runs:
-        s = summary.setdefault(run["label"], {"ms": {}, "ptxas": {}, "sass": {}})
-        for k, v in run["ms"].items():
-            s["ms"].setdefault(k, []).append(v)
+        s = summary.setdefault(run["label"], {"ms": {}, "ms_wrapper": {}, "ptxas": {}, "sass": {}})
+        for key in ("ms", "ms_wrapper"):
+            for k, v in run[key].items():
+                s[key].setdefault(k, []).append(v)
         s["ptxas"].update(build.parse_ptxas(run["ptxas_text"]) if run["ptxas_text"] else run["ptxas_saved"])
         s["sass"].update({build._entry_name(k): v for k, v in run["sass"].items()})
     for s in summary.values():
         s["median_ms"] = {k: statistics.median(v) for k, v in s["ms"].items()}
+        s["median_ms_wrapper"] = {k: statistics.median(v) for k, v in s["ms_wrapper"].items()}
     agree = all(run["digests"] == runs[0]["digests"] for run in runs)
-    lines += [nvidia_smi(), json.dumps({"summary": summary, "digests_agree": agree})]
+    lines += [nvidia_smi(), json.dumps({"summary": summary, "digests_agree": agree, "failed": failed})]
     print("\n".join(lines[-2:]), flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             f.write("\n".join(lines) + "\n")
-    return 0 if agree else 2
+    return 1 if failed else (0 if agree else 2)
 
 
 if __name__ == "__main__":
