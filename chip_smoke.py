@@ -11,9 +11,9 @@ of tpujpeg/. Phases, one JSON line each:
 2. build: nvcc builds the eleven kernels into tpujpeg_torch/_build/ (one
    nvcc per source, all started together), and its -Xptxas -v report:
    registers, shared memory, stack and spill bytes per kernel. The
-   redesigned kernels (A, 2, 7, 8, 9 and the four instances of the 4:2:0
-   tile kernel behind B and the planar kernel) must show no stack and no
-   spill.
+   redesigned kernels (A, 2, 7, 8, 9 and every instance of the color tile
+   kernels: 4:2:0 behind B and its planar kernel, 4:2:2 behind C and its
+   planar kernel, 4:4:4 behind D) must show no stack and no spill.
 3. kernel_vs_plain: on every fused-path fixture at batch 2, kernel A's
    planes and error bits, kernel 2's coefficients and error bits,
    kernel 6's planes from those coefficients, and kernel B/C/D's RGB,
@@ -27,9 +27,9 @@ of tpujpeg/. Phases, one JSON line each:
    And the planar 4:2:0 and 4:2:2 kernels (the packed16 layout) against
    their plain versions on the 4:2:0/4:2:2 fixtures at batch 2 (an odd
    width cropped to even, after the wrapper refused it) and on random
-   planes with even widths and odd heights. Kernel B and the 4:2:0
-   planar kernel also at the tile kernel's edges (TILE_EDGES: ragged
-   widths and heights, H = 1 and 2, W = 2, padded rows, a crop one
+   planes with even widths and odd heights. Every color tile kernel
+   (B, C, D and the planar kernels) also at the tile edges (TILE_EDGES:
+   ragged widths and heights, H = 1 and 2, W = 2, padded rows, a crop one
    column in), on random planes and planes of 0 and 255. And kernels A
    and 2 with their start state (bit0, dc0) on the norst plans of the
    marker-free 2048x2048 fixture and of rst_rows_420 (restart segments
@@ -39,9 +39,10 @@ of tpujpeg/. Phases, one JSON line each:
 4. main_path: decode_batch_to_rgb of 32 copies of the 2048x2048 q85
    4:2:0 fixture (restart every 4 MCUs), one warm-up and 3 timed runs;
    the launch counters, zeroed just before, show kernels A and B ran
-   and no other. Then one batch of 32 each of the 4:2:2, 4:4:4 and gray
-   fixtures through the same entry, each counted apart: A and C, A and
-   D, A alone. Decoded images hash to PIL's (manifest).
+   and no other. Then one batch of 32 each of the same image at 4:2:2
+   and 4:4:4 (422_2048, 444_2048) and of the gray fixture through the
+   same entry, each counted apart: A and C, A and D, A alone. Decoded
+   images hash to PIL's (manifest).
 5. staged: the same 32 images through the staged coefficient path,
    decode_batch_to_coeffs (kernel 2) then pipeline.transform_batch
    (kernel 6, then kernel B), one warm-up and 3 timed runs, counted
@@ -69,7 +70,7 @@ of tpujpeg/. Phases, one JSON line each:
    nhwc. Every image equals the main path's RGB (packed16 as its planar
    bytes) and PIL's hash. Also the host-prep rate on one thread, the
    device-only rate (plans built and uploaded before the clock), and a
-   packed16 chunk of the 4:2:2 fixture (A and the 4:2:2 planar kernel),
+   packed16 chunk of 32 x 422_2048 (A and the 4:2:2 planar kernel),
    and the packed16 stream with pinned against pageable plans, 4 runs
    each alternated, the first of each a warm-up.
 9. batch: decode_batch_on_device and decode_batch on one list of every
@@ -90,9 +91,12 @@ of tpujpeg/. Phases, one JSON line each:
    batch 32, each scan run from its own input state, the kernel's output
    state and error bits equal to the plain version's), beside its
    bound (bytes over 3.35 TB/s or integer operations over the card's
-   issue rate, whichever is larger). The planar kernels beside kernel B
-   also on random 32 x 2048^2 planes (tools/color_probe.py's and
-   color_profile.py's A/B), and the tail split of tools/tail_variants.py:
+   issue rate, whichever is larger); C, D and the 4:2:2 planar kernel on
+   the 2048^2 batches, and again (small) on the 384x512 fixtures. The
+   planar kernels beside kernel B also on random 32 x 2048^2 planes
+   (tools/color_probe.py's and color_profile.py's A/B), C, the 4:2:2
+   planar kernel and D on random 32 x 2048^2 planes, each equal to its
+   plain version there, and the tail split of tools/tail_variants.py:
    kernel A alone, A + B and A + the planar kernel.
 11. faults: one corrupted member of a batch fails with the manifest's
    exception class; the other members stay bit-exact. The marker-free
@@ -125,6 +129,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(HERE, "tpujpeg_torch", "fixtures")
 MAIN_BATCH = 32
+AB_SIZE = 2048   # luma height and width of the random planes of kernel_timing_ab
 
 # name -> (source, the TPU kernel it replaces); all are CUDA C++.
 KERNELS = {
@@ -154,11 +159,12 @@ NORST_MAIN = "norst_2048"   # the norst phase's fixture
 PROG_MAIN = "prog_rst_2048"   # the progressive phase's fixture
 PROG_KERNEL = {"dc_first": "prog_dc_first", "ac_first": "prog_ac_first", "ac_refine": "prog_ac_refine"}
 # The kernels redesigned to keep nothing in local memory (A, 2, 7, 8, 9,
-# and kernel B and the 4:2:0 planar kernel: the tile kernel's four
-# instances).
+# and every instance of the color tile kernels: 4:2:0 behind B and its
+# planar kernel, 4:2:2 behind C and its planar kernel, 4:4:4 behind D).
 NO_LOCAL_MEMORY = ("wavefront_pixels_kernel", "wavefront_coeff_kernel", "prog_dc_first_kernel",
-                   "prog_ac_first_kernel", "prog_ac_refine_kernel", "h2v2_tile_kernel<0,0>",
-                   "h2v2_tile_kernel<0,1>", "h2v2_tile_kernel<1,0>", "h2v2_tile_kernel<1,1>")
+                   "prog_ac_first_kernel", "prog_ac_refine_kernel",
+                   *(f"{k}_tile_kernel<{v},{p}>" for k in ("h2v2", "h2v1") for v in (0, 1) for p in (0, 1)),
+                   "color_444_tile_kernel<0>", "color_444_tile_kernel<1>")
 
 # The card's roofs for bound_ms: HBM3 at 3.35 TB/s, and integer work at
 # the issue rate of 132 SMs x 128 lanes x 1.98 GHz with two operations
@@ -194,14 +200,14 @@ OPS_COLOR_PIXEL = {"upsample_color_h2v2": 32, "upsample_color_h2v1": 30, "color_
 OPS_SYMBOL = 8
 OPS_CORRECTION_BIT = 2
 
-# Kernel B's and the 4:2:0 planar kernel's tile edges (tiles of 16 rows x
-# 256 columns, 4 tiles down per block, 16 pixels per thread) as (H, W,
-# luma row padding, chroma row padding, first column): widths one and two
-# past a multiple of 16 and of 256, heights one past a tile and one past
-# a block's 64 rows, H = 1 and 2, W = 2, rows whose strides are no
-# multiple of 16 or of 8 bytes, a crop one column in (odd base pointers:
-# the byte instance), 16-byte luma with 8-byte aligned chroma rows, and
-# aligned planes (the 16-byte path).
+# The color tile kernels' edges (tiles of 16 rows x 256 columns, 4 tiles
+# down per block, 16 pixels per thread) as (H, W, luma row padding,
+# chroma row padding, first column): widths one and two past a multiple
+# of 16 and of 256, heights one past a tile and one past a block's 64
+# rows, H = 1 and 2, W = 2, rows whose strides are no multiple of 16 or
+# of 8 bytes, a crop one column in (odd base pointers: the byte
+# instance), 16-byte luma with 8-byte aligned chroma rows, and aligned
+# planes (the 16-byte path).
 TILE_EDGES = [(17, 4097, 0, 0, 0), (17, 4098, 0, 0, 0), (33, 257, 3, 1, 0), (33, 258, 0, 0, 0),
               (9, 17, 0, 0, 0), (9, 18, 2, 2, 0), (17, 256, 0, 0, 0), (1, 512, 0, 0, 0),
               (2, 512, 0, 0, 0), (5, 2, 0, 0, 0), (33, 256, 0, 0, 1), (33, 512, 16, 8, 0),
@@ -246,16 +252,22 @@ def planar_bytes(torch, packed):
     return packed.view(torch.uint8).view(*lead, c, h, 2 * w2).movedim(-3, -1)
 
 
-def edge_planes(torch, gen, dev, h, w, ypad, cpad, off, fill):
-    """Luma [3, h, w] and chroma [3, ceil(h/2), ceil(w/2)] on dev, each
-    cropped from column `off` of a plane `pad` bytes wider: random bytes,
-    or ("0/255") bytes of 0 and 255 only."""
+# Chroma plane shape for luma (H, W), by the NHWC color kernel.
+CHROMA_SHAPE = {"upsample_color_h2v2": lambda h, w: ((h + 1) // 2, (w + 1) // 2),
+                "upsample_color_h2v1": lambda h, w: (h, (w + 1) // 2),
+                "color_444": lambda h, w: (h, w)}
+
+
+def edge_planes(torch, gen, dev, kname, h, w, ypad, cpad, off, fill):
+    """Luma [3, h, w] and the chroma planes of color kernel kname on dev,
+    each cropped from column `off` of a plane `pad` bytes wider: random
+    bytes, or ("0/255") bytes of 0 and 255 only."""
     def plane(rows, cols, pad):
         t = torch.randint(0, 256 if fill == "random" else 2, (3, rows + 1, cols + pad + off),
                           generator=gen, dtype=torch.uint8)
         return (t if fill == "random" else t * 255).to(dev)[:, :rows, off:off + cols]
 
-    hc, wc = (h + 1) // 2, (w + 1) // 2
+    hc, wc = CHROMA_SHAPE[kname](h, w)
     return [plane(h, w, ypad), plane(hc, wc, cpad), plane(hc, wc, cpad)]
 
 
@@ -390,7 +402,8 @@ def main() -> int:
         "color_444": (sc.color_444, sc.color_444_plain),
     }
     color_of = {"420_2048": "upsample_color_h2v2", "420_odd": "upsample_color_h2v2",
-                "422": "upsample_color_h2v1", "444": "color_444"}
+                "422": "upsample_color_h2v1", "444": "color_444",
+                "422_2048": "upsample_color_h2v1", "444_2048": "color_444"}
     planar_fns = {
         "upsample_color_h2v2": ("upsample_color_h2v2_planar", sc.upsample_color_h2v2_packed,
                                 sc.upsample_color_h2v2_packed_plain),
@@ -522,23 +535,24 @@ def main() -> int:
         emit("kernel_vs_plain", random_planes=[2, h, w], row_stride=w + pad, kernel=planar_fns[cname][0],
              max_abs_err=err)
 
-    # Kernel B and the 4:2:0 planar kernel (odd widths: B alone) at the
-    # tile kernel's edges, 3 images each, on random planes and on planes
-    # of 0 and 255 only (every clamp): TILE_EDGES' widths, heights, row
-    # paddings and a crop one column in.
-    edge_err = {"upsample_color_h2v2": 0}
-    for h, w, ypad, cpad, off in TILE_EDGES:
-        for fill in ("random", "0/255"):
-            ins = edge_planes(torch, gen, dev, h, w, ypad, cpad, off, fill)
-            out_b = sc.upsample_color_h2v2(*ins)
-            torch.cuda.synchronize()
-            err = max_abs(torch, out_b, sc.upsample_color_h2v2_plain(*ins))
-            check(err == 0, f"upsample_color_h2v2 != plain ({err}) at {(h, w, ypad, cpad, off, fill)}")
-            edge_err["upsample_color_h2v2"] = max(edge_err["upsample_color_h2v2"], err)
-            perr = planar_vs_plain("upsample_color_h2v2", ins, out_b) if w % 2 == 0 else None
-            emit("kernel_vs_plain", tile_edge=[3, h, w], luma_row_stride=ins[0].stride(1),
-                 chroma_row_stride=ins[1].stride(1), luma_offset=ins[0].storage_offset(), fill=fill,
-                 upsample_color_h2v2_max_abs_err=err, upsample_color_h2v2_planar_max_abs_err=perr)
+    # Every color tile kernel at the tile edges (planar kernels: even
+    # widths only), 3 images each, on random planes and on planes of 0 and
+    # 255 only (every clamp): TILE_EDGES' widths, heights, row paddings
+    # and a crop one column in.
+    edge_err = {k: 0 for k in color_fns}
+    for kname, (kern, plain) in color_fns.items():
+        for h, w, ypad, cpad, off in TILE_EDGES:
+            for fill in ("random", "0/255"):
+                ins = edge_planes(torch, gen, dev, kname, h, w, ypad, cpad, off, fill)
+                out_k = kern(*ins)
+                torch.cuda.synchronize()
+                err = max_abs(torch, out_k, plain(*ins))
+                check(err == 0, f"{kname} != plain ({err}) at {(h, w, ypad, cpad, off, fill)}")
+                edge_err[kname] = max(edge_err[kname], err)
+                perr = planar_vs_plain(kname, ins, out_k) if kname in planar_fns and w % 2 == 0 else None
+                emit("kernel_vs_plain", kernel=kname, tile_edge=[3, h, w], luma_row_stride=ins[0].stride(1),
+                     chroma_row_stride=ins[1].stride(1), luma_offset=ins[0].storage_offset(), fill=fill,
+                     max_abs_err=err, planar_max_abs_err=perr)
 
     def events():
         return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -640,7 +654,7 @@ def main() -> int:
     # on their own batch, counted apart from the main path.
     launches = dict(main_launches)
     others = {}
-    for name, kname in (("422", "upsample_color_h2v1"), ("444", "color_444"), ("gray", None)):
+    for name, kname in (("422_2048", "upsample_color_h2v1"), ("444_2048", "color_444"), ("gray", None)):
         js = [parse(datas[name]) for _ in range(MAIN_BATCH)]
         build.LAUNCHES.clear()
         out, failures = tpujpeg_torch.decode_batch_to_rgb(js, device=dev)
@@ -941,7 +955,7 @@ def main() -> int:
          cpu_count=os.cpu_count(), megapixels=smp)
 
     # The 4:2:2 planar kernel on its own packed16 stream chunk.
-    d422 = datas["422"]
+    d422 = datas["422_2048"]
     build.LAUNCHES.clear()
     chunk = next(iter(tpujpeg_torch.decode_stream([d422] * MAIN_BATCH, scfg, chunk_size=MAIN_BATCH,
                                                   layout="packed16", device=dev)))
@@ -951,10 +965,11 @@ def main() -> int:
           f"stream 4:2:2 packed16: launches {got}")
     check(chunk.layout == "packed16" and not chunk.failures, "stream 4:2:2: not packed16")
     for img in (chunk.images[0], chunk.images[-1]):
-        check(sha(planar_bytes(torch, img)) == manifest["fixtures"]["422"]["pil_sha256"], "stream 4:2:2 != PIL")
+        check(sha(planar_bytes(torch, img)) == manifest["fixtures"]["422_2048"]["pil_sha256"],
+              "stream 4:2:2 != PIL")
     launches["upsample_color_h2v1_planar"] = launches.get("upsample_color_h2v1_planar", 0) + got[
         "upsample_color_h2v1_planar"]
-    emit("stream", fixture="422", layout="packed16", images=MAIN_BATCH, launches=got)
+    emit("stream", fixture="422_2048", layout="packed16", images=MAIN_BATCH, launches=got)
     del chunk
 
     # 9. batch: every fixture, a zeroed payload and bytes that are no JPEG.
@@ -1048,56 +1063,82 @@ def main() -> int:
     )
     del coef_k, idct_k
 
-    color_inputs = {"upsample_color_h2v2": (frame, planes_k)}
-    for name, kname in (("422", "upsample_color_h2v1"), ("444", "color_444")):
-        js = others[name]
-        color_inputs[kname] = (js[0].frame, wf.decode_lanes_to_planes(
-            wf.build_block_plan(js), [wf.ImageGeom.of(j) for j in js], dev)[0])
-    for kname, (fr, planes) in color_inputs.items():
+    def color_timing(kname, fr, planes, label):
+        """The color kernel kname (and its planar kernel, if any) on the
+        cropped planes against its plain version: timing dicts keyed by
+        kernel name."""
         kern, plain = color_fns[kname]
         ins = cropped(fr, planes)
         out_k = kern(*ins)
         out_p = plain(*ins)
-        results[kname] = dict(
-            max_abs_err=max(max_abs(torch, out_k, out_p), edge_err.get(kname, 0)),
-            ms=device_ms(torch, lambda: kern(*ins), 10),
-            plain_ms=cuda_ms(torch, lambda: plain(*ins), 3),
-            shape=f"{tuple(ins[0].shape)} luma, {tuple(ins[1].shape)} chroma -> {tuple(out_k.shape)}",
-            bound=bound(sum(t.numel() for t in ins) + out_k.numel(),
-                        (out_k.numel() // 3) * OPS_COLOR_PIXEL[kname]),
-        )
-        check(results[kname]["max_abs_err"] == 0, f"{kname}: kernel != plain on the main path")
+        err = max_abs(torch, out_k, out_p)
+        check(err == 0, f"{kname}: kernel != plain on {label}")
+        b_ms, b_by = bound(sum(t.numel() for t in ins) + out_k.numel(),
+                           (out_k.numel() // 3) * OPS_COLOR_PIXEL[kname])
+        timed = {kname: dict(
+            max_abs_err=err, ms=device_ms(torch, lambda: kern(*ins), 10),
+            plain_ms=cuda_ms(torch, lambda: plain(*ins), 3), bound_ms=b_ms, bound_by=b_by,
+            shape=f"{label}: {tuple(ins[0].shape)} luma, {tuple(ins[1].shape)} chroma -> {tuple(out_k.shape)}")}
         if kname in planar_fns:
             pname, pkern, pplain = planar_fns[kname]
             out_pk = pkern(*ins)
             torch.cuda.synchronize()
             err = max_abs(torch, out_pk, pplain(*ins))
             check(err == 0 and torch.equal(planar_bytes(torch, out_pk), out_k),
-                  f"{pname}: kernel != plain or != {kname}'s bytes on the main path")
-            results[pname] = dict(
-                max_abs_err=max(err, planar_err[pname]),
-                ms=device_ms(torch, lambda: pkern(*ins), 10),
-                plain_ms=cuda_ms(torch, lambda: pplain(*ins), 3),
-                shape=f"{tuple(ins[0].shape)} luma, {tuple(ins[1].shape)} chroma -> uint16 {tuple(out_pk.shape)}",
-                bound=results[kname]["bound"],
-            )
-            del out_pk
-        del out_k, out_p
-    del color_inputs
+                  f"{pname}: kernel != plain or != {kname}'s bytes on {label}")
+            timed[pname] = dict(
+                max_abs_err=err, ms=device_ms(torch, lambda: pkern(*ins), 10),
+                plain_ms=cuda_ms(torch, lambda: pplain(*ins), 3), bound_ms=b_ms, bound_by=b_by,
+                shape=f"{label}: {tuple(ins[0].shape)} luma, {tuple(ins[1].shape)} chroma -> uint16 "
+                      f"{tuple(out_pk.shape)}")
+        return timed
+
+    def a_planes(js):
+        """Kernel A's planes of a parsed batch."""
+        return js[0].frame, wf.decode_lanes_to_planes(wf.build_block_plan(js), [wf.ImageGeom.of(j) for j in js],
+                                                      dev)[0]
+
+    # Kernel B on the main path's planes; C, D and the 4:2:2 planar kernel
+    # on kernel A's planes of the 2048^2 batches, and again ("small") on
+    # 32 copies of the 384x512 fixtures.
+    timed = color_timing("upsample_color_h2v2", frame, planes_k, "420_2048")
+    for name, small, kname in (("422_2048", "422", "upsample_color_h2v1"), ("444_2048", "444", "color_444")):
+        timed.update(color_timing(kname, *a_planes(others[name]), name))
+        for k, r in color_timing(kname, *a_planes([parse(datas[small]) for _ in range(MAIN_BATCH)]),
+                                 small).items():
+            timed[k]["small"] = r
+    for k, r in timed.items():
+        r["max_abs_err"] = max(r["max_abs_err"], edge_err.get(k, 0), planar_err.get(k, 0),
+                               r.get("small", {}).get("max_abs_err", 0))
+        r["bound"] = (r.pop("bound_ms"), r.pop("bound_by"))
+        results[k] = r
+    del timed, others
 
     # tools/color_probe.py's and color_profile.py's A/B: kernel B and the
-    # 4:2:0 planar kernel on random 32 x 2048^2 planes.
+    # 4:2:0 planar kernel on random 32 x 2048^2 planes; C, the 4:2:2 planar
+    # kernel and D on random planes of the same luma size, each held to
+    # its plain version there.
     g = torch.Generator(device=dev).manual_seed(11)
-    ab_ins = [torch.randint(0, 256, shape, generator=g, dtype=torch.uint8, device=dev)
-              for shape in ((MAIN_BATCH, 2048, 2048), (MAIN_BATCH, 1024, 1024), (MAIN_BATCH, 1024, 1024))]
-    ab_bound = bound(sum(t.numel() for t in ab_ins) + MAIN_BATCH * 2048 * 2048 * 3,
-                     MAIN_BATCH * 2048 * 2048 * OPS_COLOR_PIXEL["upsample_color_h2v2"])
-    ab_err = planar_vs_plain("upsample_color_h2v2", ab_ins, sc.upsample_color_h2v2(*ab_ins))
-    emit("kernel_timing_ab", planes="random 32 x 2048^2 luma, 32 x 1024^2 chroma", max_abs_err=ab_err,
-         upsample_color_h2v2_ms=device_ms(torch, lambda: sc.upsample_color_h2v2(*ab_ins), 10),
-         upsample_color_h2v2_planar_ms=device_ms(torch, lambda: sc.upsample_color_h2v2_packed(*ab_ins), 10),
-         bound_ms=ab_bound[0], bound_by=ab_bound[1])
-    del ab_ins
+    for kname, (kern, plain) in color_fns.items():
+        shapes = [(AB_SIZE, AB_SIZE)] + [CHROMA_SHAPE[kname](AB_SIZE, AB_SIZE)] * 2
+        ab_ins = [torch.randint(0, 256, (MAIN_BATCH, *hw), generator=g, dtype=torch.uint8, device=dev)
+                  for hw in shapes]
+        out_k = kern(*ab_ins)
+        torch.cuda.synchronize()
+        err = max_abs(torch, out_k, plain(*ab_ins))
+        check(err == 0, f"{kname} != plain on random {AB_SIZE}^2 planes ({err})")
+        rec = {f"{kname}_ms": device_ms(torch, lambda: kern(*ab_ins), 10)}
+        if kname in planar_fns:
+            err = max(err, planar_vs_plain(kname, ab_ins, out_k))
+            pname, pkern, _pplain = planar_fns[kname]
+            rec[f"{pname}_ms"] = device_ms(torch, lambda: pkern(*ab_ins), 10)
+        del out_k
+        results[kname]["max_abs_err"] = max(results[kname]["max_abs_err"], err)
+        ab_bound = bound(sum(t.numel() for t in ab_ins) + MAIN_BATCH * AB_SIZE * AB_SIZE * 3,
+                         MAIN_BATCH * AB_SIZE * AB_SIZE * OPS_COLOR_PIXEL[kname])
+        emit("kernel_timing_ab", planes=f"random {MAIN_BATCH} x {AB_SIZE}^2 luma, {MAIN_BATCH} x {shapes[1]} chroma",
+             max_abs_err=err, bound_ms=ab_bound[0], bound_by=ab_bound[1], **rec)
+        del ab_ins
 
     # tools/tail_variants.py's tail split on the main path's plan: kernel A
     # alone, A + B, and A + the planar kernel (bounds: the sums of theirs).
@@ -1268,7 +1309,7 @@ def main() -> int:
              launches=launches[k], max_abs_err=results[k]["max_abs_err"],
              ms=results[k]["ms"], plain_ms=results[k]["plain_ms"],
              bound_ms=results[k]["bound_ms"], bound_by=results[k]["bound_by"], library_ms=None,
-             **({"norst": results[k]["norst"]} if "norst" in results[k] else {}))
+             **{key: results[k][key] for key in ("norst", "small") if key in results[k]})
         for k in KERNELS
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

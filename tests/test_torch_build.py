@@ -41,8 +41,8 @@ ptxas info    : Compiling entry function '_Z16h2v2_tile_kernelILb0ELb0EEv5PlaneS
 ptxas info    : Function properties for _Z16h2v2_tile_kernelILb0ELb0EEv5PlaneS0_S0_iiiiiPh
     8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
 ptxas info    : Used 64 registers, used 1 barriers, 3200 bytes smem, 424 bytes cmem[0]
-ptxas info    : Compiling entry function '_Z18planar_h2v1_kernelILb1EEv5PlaneS0_S0_iiiiPt' for 'sm_90a'
-ptxas info    : Function properties for _Z18planar_h2v1_kernelILb1EEv5PlaneS0_S0_iiiiPt
+ptxas info    : Compiling entry function '_Z21color_444_tile_kernelILb1EEv5PlaneS0_S0_iiPh' for 'sm_90a'
+ptxas info    : Function properties for _Z21color_444_tile_kernelILb1EEv5PlaneS0_S0_iiPh
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 20 registers, 412 bytes cmem[0]
 """
@@ -54,7 +54,7 @@ def test_parse_ptxas_keeps_template_instances_apart():
     assert build.parse_ptxas(TEMPLATES) == {
         "h2v2_tile_kernel<1,0>": dict(registers=48, smem=3200, stack=0, spill_stores=0, spill_loads=0),
         "h2v2_tile_kernel<0,0>": dict(registers=64, smem=3200, stack=8, spill_stores=4, spill_loads=4),
-        "planar_h2v1_kernel<1>": dict(registers=20, smem=0, stack=0, spill_stores=0, spill_loads=0),
+        "color_444_tile_kernel<1>": dict(registers=20, smem=0, stack=0, spill_stores=0, spill_loads=0),
     }
 
 

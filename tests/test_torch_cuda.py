@@ -676,28 +676,67 @@ def test_planar_kernels_match_plain(cuda, k, h, w, pad):
     assert torch.equal(got.view(torch.uint8).view(3, 3, h, w), nhwc.permute(0, 3, 1, 2))
 
 
-# The 4:2:0 tile kernel's edges (tiles of 16 rows x 256 columns, 4 tiles
-# down per block, 16 pixels per thread) as (H, W, luma row padding,
-# chroma row padding, first column): widths one and two past a multiple
-# of 16 and of 256, heights one past a tile and one past a block's 64
-# rows, H = 1 and 2, W = 2, row strides that are no multiple of 16 or of
-# 8 bytes, a crop one column in (odd base pointers), 16-byte luma with
-# 8-byte aligned chroma rows, and aligned planes (the 16-byte path).
+# The tile kernels' edges (tiles of 16 rows x 256 columns, 4 tiles down
+# per block, 16 pixels per thread) as (H, W, luma row padding, chroma row
+# padding, first column): widths one and two past a multiple of 16 and of
+# 256, heights one past a tile and one past a block's 64 rows, H = 1 and
+# 2, W = 2, row strides that are no multiple of 16 or of 8 bytes, a crop
+# one column in (odd base pointers), 16-byte luma with 8-byte aligned
+# chroma rows, and aligned planes (the 16-byte path).
 TILE_EDGES = [(17, 4097, 0, 0, 0), (17, 4098, 0, 0, 0), (33, 257, 3, 1, 0), (33, 258, 0, 0, 0),
               (9, 17, 0, 0, 0), (9, 18, 2, 2, 0), (17, 256, 0, 0, 0), (1, 512, 0, 0, 0),
               (2, 512, 0, 0, 0), (5, 2, 0, 0, 0), (33, 256, 0, 0, 1), (33, 512, 16, 8, 0),
               (33, 512, 5, 5, 0), (32, 512, 0, 0, 0), (65, 258, 0, 0, 0)]
+# Per sampling: the chroma shape for (H, W), the NHWC kernel and its plain
+# version, and the planar kernel and its plain version (4:4:4 has none).
+SAMPLING = {
+    "h2v2": (lambda h, w: ((h + 1) // 2, (w + 1) // 2), "upsample_color_h2v2", sc.upsample_color_h2v2,
+             sc.upsample_color_h2v2_plain, "upsample_color_h2v2_planar", sc.upsample_color_h2v2_packed,
+             sc.upsample_color_h2v2_packed_plain),
+    "h2v1": (lambda h, w: (h, (w + 1) // 2), "upsample_color_h2v1", sc.upsample_color_h2v1,
+             sc.upsample_color_h2v1_plain, "upsample_color_h2v1_planar", sc.upsample_color_h2v1_packed,
+             sc.upsample_color_h2v1_packed_plain),
+    "444": (lambda h, w: (h, w), "color_444", sc.color_444, sc.color_444_plain, None, None, None),
+}
 
 
+def _check_tile_kernels(sampling, cpu, ins):
+    """The sampling's NHWC kernel and (for even widths) its planar kernel
+    on `ins` (CUDA) and `cpu` (the same planes on the CPU): each launches
+    once and equals its plain version on the card and on the CPU, and the
+    planar bytes equal the NHWC kernel's."""
+    _chroma, name, kern, plain, pname, pkern, pplain = SAMPLING[sampling]
+    n, h, w = ins[0].shape
+    before = build.LAUNCHES[name]
+    got = kern(*ins)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[name] == before + 1
+    want = plain(*cpu)
+    assert torch.equal(got, plain(*ins))
+    assert torch.equal(got.cpu(), want)
+    if pname is None or w % 2:
+        return
+    before = build.LAUNCHES[pname]
+    packed = pkern(*ins)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[pname] == before + 1
+    assert packed.dtype == torch.uint16 and packed.shape == (n, 3, h, w // 2)
+    assert torch.equal(packed, pplain(*ins))
+    assert torch.equal(packed.view(torch.uint8).view(n, 3, h, w).cpu(), want.permute(0, 3, 1, 2))
+
+
+@pytest.mark.parametrize("sampling", list(SAMPLING))
 @pytest.mark.parametrize("fill", ["random", "0/255"])
 @pytest.mark.parametrize("h,w,ypad,cpad,off", TILE_EDGES)
-def test_h2v2_kernels_match_plain_at_tile_edges(cuda, h, w, ypad, cpad, off, fill):
-    """Kernel B, and for even widths the 4:2:0 planar kernel, on 3 images
-    cropped from wider planes, random or of bytes 0 and 255 only (every
-    clamp of the color conversion and the chroma edges): each launches
-    once and equals its plain version on the card and on the CPU."""
+def test_h2v2_kernels_match_plain_at_tile_edges(cuda, h, w, ypad, cpad, off, fill, sampling):
+    """Each sampling's tile kernels (4:2:0: kernel B and the 4:2:0 planar
+    kernel; 4:2:2: kernel C and the 4:2:2 planar kernel; 4:4:4: kernel D),
+    planar for even widths only, on 3 images cropped from wider planes,
+    random or of bytes 0 and 255 only (every clamp of the color conversion
+    and the chroma edges): each launches once and equals its plain version
+    on the card and on the CPU."""
     g = torch.Generator().manual_seed(h * 100003 + w * 101 + ypad * 11 + cpad * 7 + off)
-    hc, wc = (h + 1) // 2, (w + 1) // 2
+    hc, wc = SAMPLING[sampling][0](h, w)
 
     def plane(rows, cols, pad):
         t = torch.randint(0, 256 if fill == "random" else 2, (3, rows + 1, cols + pad + off),
@@ -709,40 +748,21 @@ def test_h2v2_kernels_match_plain_at_tile_edges(cuda, h, w, ypad, cpad, off, fil
     ins = [t.to(cuda)[:, :rows, off:off + cols] for t, (rows, cols) in zip(full, [(h, w), (hc, wc), (hc, wc)])]
     assert [t.stride(1) for t in ins] == [w + ypad + off, wc + cpad + off, wc + cpad + off]
     assert ins[0].storage_offset() == off
-    before = build.LAUNCHES["upsample_color_h2v2"]
-    got = sc.upsample_color_h2v2(*ins)
-    torch.cuda.synchronize()
-    assert build.LAUNCHES["upsample_color_h2v2"] == before + 1
-    want = sc.upsample_color_h2v2_plain(*cpu)
-    assert torch.equal(got, sc.upsample_color_h2v2_plain(*ins))
-    assert torch.equal(got.cpu(), want)
-    if w % 2:
-        return
-    before = build.LAUNCHES["upsample_color_h2v2_planar"]
-    packed = sc.upsample_color_h2v2_packed(*ins)
-    torch.cuda.synchronize()
-    assert build.LAUNCHES["upsample_color_h2v2_planar"] == before + 1
-    assert packed.dtype == torch.uint16 and packed.shape == (3, 3, h, w // 2)
-    assert torch.equal(packed, sc.upsample_color_h2v2_packed_plain(*ins))
-    assert torch.equal(packed.view(torch.uint8).view(3, 3, h, w).cpu(), want.permute(0, 3, 1, 2))
+    _check_tile_kernels(sampling, cpu, ins)
 
 
+@pytest.mark.parametrize("sampling", list(SAMPLING))
 @pytest.mark.parametrize("w", [16, 18])
-def test_h2v2_kernels_split_batches_over_the_grid_limit(cuda, w):
-    """65,537 images (the grid's z dimension holds 65,535): the C entry
-    launches twice, at the right image offsets, for the 16-byte and the
-    byte instance."""
+def test_h2v2_kernels_split_batches_over_the_grid_limit(cuda, w, sampling):
+    """65,537 images (the grid's z dimension holds 65,535): each tile
+    kernel's C entry launches twice, at the right image offsets, for the
+    16-byte and the byte instance."""
     g = torch.Generator().manual_seed(w)
     n, h = 65537, 3
+    hc, wc = SAMPLING[sampling][0](h, w)
     cpu = [torch.randint(0, 256, (n, rows, cols), generator=g, dtype=torch.uint8)
-           for rows, cols in ((h, w), ((h + 1) // 2, w // 2), ((h + 1) // 2, w // 2))]
-    ins = [t.to(cuda) for t in cpu]
-    want = sc.upsample_color_h2v2_plain(*cpu)
-    got = sc.upsample_color_h2v2(*ins)
-    packed = sc.upsample_color_h2v2_packed(*ins)
-    torch.cuda.synchronize()
-    assert torch.equal(got.cpu(), want)
-    assert torch.equal(packed.view(torch.uint8).view(n, 3, h, w).cpu(), want.permute(0, 3, 1, 2))
+           for rows, cols in ((h, w), (hc, wc), (hc, wc))]
+    _check_tile_kernels(sampling, cpu, [t.to(cuda) for t in cpu])
 
 
 @pytest.mark.parametrize("k", range(2), ids=["h2v2", "h2v1"])

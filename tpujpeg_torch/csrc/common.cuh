@@ -266,12 +266,3 @@ __device__ __forceinline__ void tj_idct_islow_store(const Coef& coef, uint8_t* d
     *(unsigned long long*)(dst + (size_t)r * pitch) = packed;
   }
 }
-
-// YCbCr -> RGB for one pixel into o[0..2].
-__device__ __forceinline__ void tj_ycc_rgb(int y, int cb, int cr, uint8_t* o) {
-  cb -= 128;
-  cr -= 128;
-  o[0] = tj_clamp_u8(y + ((TJ_FIX_R_CR * cr + TJ_ONE_HALF) >> 16));
-  o[1] = tj_clamp_u8(y + ((TJ_FIX_G_CB * cb + TJ_FIX_G_CR * cr + TJ_ONE_HALF) >> 16));
-  o[2] = tj_clamp_u8(y + ((TJ_FIX_B_CB * cb + TJ_ONE_HALF) >> 16));
-}

@@ -35,8 +35,10 @@ ROOT = os.path.dirname(os.path.dirname(HERE))
 # another generator). "420_2048" is bench.py's corpus shape (2048^2, q85,
 # 4:2:0, restart every 4 MCUs, first seed); "prog_2048" and "norst_2048"
 # are the same image written progressive and without restart markers, and
-# "prog_rst_2048" progressive with its restart markers. "rst_rows_420"
-# restarts every MCU row, in segments over the restart planner's row cap.
+# "prog_rst_2048" progressive with its restart markers; "422_2048" and
+# "444_2048" the same image and restart interval at 4:2:2 and 4:4:4.
+# "rst_rows_420" restarts every MCU row, in segments over the restart
+# planner's row cap.
 FIXTURES = {
     "420_2048": dict(w=2048, h=2048, seed=7, quality=85, subsampling=2, restart_blocks=4),
     "420_odd": dict(w=129, h=65, seed=9, quality=85, subsampling=2, restart_blocks=3),
@@ -54,6 +56,8 @@ FIXTURES = {
     "prog_gray": dict(w=512, h=384, seed=13, quality=85, mode="L", progressive=True,
                       restart_blocks=4),
     "rst_rows_420": dict(w=512, h=384, seed=14, quality=85, subsampling=2, restart_rows=1),
+    "422_2048": dict(w=2048, h=2048, seed=7, quality=85, subsampling=1, restart_blocks=4),
+    "444_2048": dict(w=2048, h=2048, seed=7, quality=85, subsampling=0, restart_blocks=4),
 }
 STAGED = ("prog_2048", "multiscan")
 NORST = ("norst_2048", "rst_rows_420")

@@ -6,9 +6,14 @@ last axis has to be contiguous, so a crop of the decoder's padded
 planes goes in without a copy) and returns NHWC uint8 [N, H, W, 3] at
 the luma plane's size, the reference's final layout without its phase
 split, halos or u16 packing. On CUDA tensors each launches its kernel
-in ``csrc/sample_color.cu``; on the CPU it runs its plain version,
-which is built from ``transform.py``'s functions (the jdcolor.c
-constants there are the reference's ``_FIX_*``/``_color_i32``).
+in ``csrc/sample_color.cu``, one tiled design for every sampling
+(``h2v2_tile_kernel`` for B and the 4:2:0 planar kernel,
+``h2v1_tile_kernel`` for C and the 4:2:2 planar kernel,
+``color_444_tile_kernel`` for D: 16 pixels per thread, 16-byte loads
+and stores where the planes are aligned and W % 16 == 0, masked bytes
+otherwise), and raises if the launch fails; on the CPU it runs its
+plain version, which is built from ``transform.py``'s functions (the
+jdcolor.c constants there are the reference's ``_FIX_*``/``_color_i32``).
 
 The planar wrappers (``upsample_color_h2v2_packed``,
 ``upsample_color_h2v1_packed``) return the reference's packed16 layout

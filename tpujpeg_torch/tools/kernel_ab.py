@@ -13,9 +13,15 @@ and 9 summed over the scans of their kind on 32 copies of prog_rst_2048
 back-to-back launches; kernel 9 --reps times from the scan's own input
 state). Kernel B (sample_color.upsample_color_h2v2) and the 4:2:0 planar
 kernel (upsample_color_h2v2_packed) run on two inputs: kernel A's planes
-of that plan, cropped to the image, and random 32 x 2048^2 planes from a
-fixed seed (the kernel_timing_ab planes of chip_smoke.py). It uses only
-entry points that every checkout since the planar kernels has.
+of that plan, cropped to the image (/main), and random 32 x 2048^2
+planes from a fixed seed (/random, the kernel_timing_ab planes of
+chip_smoke.py). Kernel C (upsample_color_h2v1), the 4:2:2 planar kernel
+(upsample_color_h2v1_packed) and kernel D (color_444) run on kernel A's
+planes of 32 copies of their 384x512 fixture (/422, /444) and of the
+2048^2 one (/422_2048, /444_2048), and on random planes of 32 x 2048^2
+luma (/random). The fixtures are read from this tool's checkout, so
+every tree gets the same inputs. It uses only entry points that every
+checkout since the planar kernels has.
 
 Every kernel is timed two ways in the same process. ``ms``: the card
 sleeps (torch.cuda._sleep) before the start event until every launch of
@@ -53,6 +59,7 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+FIXTURES = os.path.join(os.path.dirname(HERE), "fixtures")
 BATCH = 32
 
 
@@ -157,10 +164,9 @@ def run_one(tree: str, reps: int) -> dict:
     build.get_lib()
     # A library built before this process left its report beside it.
     ptxas = out.getvalue() if "Compiling entry function" in out.getvalue() else None
-    fixtures = os.path.join(tree, "tpujpeg_torch", "fixtures")
 
     def parsed(name):
-        with open(os.path.join(fixtures, name + ".jpg"), "rb") as f:
+        with open(os.path.join(FIXTURES, name + ".jpg"), "rb") as f:
             data = f.read()
         return [tpujpeg_torch.bitstream.parse(data) for _ in range(BATCH)]
 
@@ -218,6 +224,29 @@ def run_one(tree: str, reps: int) -> dict:
             timed(f"{kname}/{label}", lambda fn=fn, ins=ins: fn(*ins))
             digests[f"{kname}/{label}"] = _digest([fn(*ins)])
     del planes, color_inputs
+
+    def a_planes(name):
+        """Kernel A's planes of 32 copies of fixture `name`, cropped."""
+        js = parsed(name)
+        lay = wf.PlaneLayout.of(wf.ImageGeom.of(js[0]))
+        out = lay.alloc(BATCH, dev)
+        plan = wf.build_block_plan(js).to(dev)
+        wf._launch_wavefront(plan, lay, out, torch.zeros(plan.n_lanes, dtype=torch.int32, device=dev))
+        return [p[:, : c.dheight, : c.dwidth] for p, c in zip(out, js[0].frame.components)]
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    for small, full, chroma_w, kernels in (
+            ("422", "422_2048", 1024, (("upsample_color_h2v1", sc.upsample_color_h2v1),
+                                       ("upsample_color_h2v1_planar", sc.upsample_color_h2v1_packed))),
+            ("444", "444_2048", 2048, (("color_444", sc.color_444),))):
+        random_ins = [torch.randint(0, 256, shape, generator=g, dtype=torch.uint8, device=dev)
+                      for shape in ((BATCH, 2048, 2048), (BATCH, 2048, chroma_w), (BATCH, 2048, chroma_w))]
+        for label, ins in ((small, a_planes(small)), (full, a_planes(full)), ("random", random_ins)):
+            for kname, fn in kernels:
+                timed(f"{kname}/{label}", lambda fn=fn, ins=ins: fn(*ins))
+                digests[f"{kname}/{label}"] = _digest([fn(*ins)])
+            del ins
+        del random_ins
 
     pjpegs = parsed("prog_rst_2048")
     acs, dcs = wp.new_state(pjpegs[0].frame, BATCH, dev)
