@@ -109,7 +109,50 @@ of tpujpeg/. Phases, one JSON line each:
    per component; the restart-segmented progressive 2048^2 with
    entropy_engine="wavefront", kernels 7-9), hashes to PIL's.
 
-Then the check that no module was loaded from tpujpeg/ and nothing was
+13. sharded: the 16384x16384 4:2:0 image (tile_jpeg(420_2048, 8, 8),
+   about 86 MB, BASELINE.json config 5's shape) through
+   parallel.halo.decode_sharded on SHARDS = 4 shards ((cuda:0,) * 4, or
+   one shard per card with 4 or more cards), one warm-up and 3 timed
+   runs, counted apart: per call kernel 2 once, kernel 6 three times per
+   shard and B once per shard, A never. Its RGB equals
+   decode_batch_to_rgb of the same bytes (kernel A + B, also one warm-up
+   and 3 timed runs, the parse inside the clock as in decode_sharded)
+   byte for byte on the card. One more call records every launch's
+   inputs and result (kernel 2 on the whole image's 262,144 lanes, kernel
+   6 on each shard's window of coefficient rows, B on each window's
+   planes): each result equals its plain version on the same inputs, on
+   the card, and the kernels line's max_abs_err takes these in. Prints
+   walls, tiling, parse and host plan times, each step's device time
+   (kernel 2, the 12 kernel 6 launches, the color stage on the windows
+   with the crop into the image, and the 4 B launches alone) and the
+   peak memory above what was allocated before, for both paths. Then the
+   same image as one scan without restart markers (fixtures/tile.py's
+   norst_jpeg codes kernel 2's coefficients again with the file's
+   tables): decode_sharded takes decode_norst_sharded (kernel 2 once per
+   shard, the DC fixup across shards), its RGB equals the
+   restart-segmented image's and decode_norst_to_rgb's (the fused
+   single-device decode of the same file), and decode_norst_sharded's
+   coefficients equal decode_norst_to_device's and the restart-segmented
+   image's. Prints the encode and host split times, walls and peak
+   memory of the four entries.
+14. The fixtures through decode_sharded on 4 shards: norst_2048,
+   422_2048, 444_2048 and gray hash to PIL's; kernel 2 runs once per
+   shard for the marker-free one (whose decode_norst_sharded
+   coefficients equal decode_norst_to_device's) and once for the others;
+   gray launches no color kernel.
+15. data_parallel: decode_batch_to_rgb_sharded of the main 32 images
+   over the 4 shards (A and B four times each, every image equal to the
+   main path's; each A and B launch, recorded, equal to its plain version
+   on the same inputs), and decode_batch(mesh=...) on the batch phase's list
+   (each image hashes to PIL's or fails with the manifest's class).
+16. cli: python -m tpujpeg_torch.cli in subprocesses: info on a
+   fixture, decode to .npy (hashing to PIL's), bench --repeats 3, and
+   batch --on-device into a temporary directory three times: every file
+   completed, then every file skipped, then with a corrupt member added,
+   exit code 2.
+
+Then the check that no module was loaded from tpujpeg/ (and that the
+new modules were loaded from tpujpeg_torch/) and nothing was
 written there, the nvidia-smi line, the kernels JSON line and, last,
 the ok line. Exits non-zero, printing no ok line, on any failure or
 without a card.
@@ -150,6 +193,9 @@ KERNELS = {
         "tpujpeg_torch/csrc/sample_color.cu", "tpujpeg/kernels/sample_color.py:146 (packed_words=True)"),
 }
 STREAM_CHUNKS = 4   # the stream phase's chunks of MAIN_BATCH images
+SHARDS = 4          # the sharded phases' mesh: one shard per card, or SHARDS shards of card 0
+GIANT_TILES = 8     # the giant image: 420_2048 tiled 8 x 8, 16384 x 16384
+CLI_FILES = ("420_odd", "422", "444", "gray")   # the cli phase's batch job
 # The batch phase's rung for each fixture: by its manifest path, but for
 # the staged ones, where the marker-free progressive stream takes host
 # entropy and the multi-scan file kernel 2 per scan.
@@ -1295,6 +1341,316 @@ def main() -> int:
              seconds=seconds, t_entropy=st.t_entropy, t_transform=st.t_transform,
              launches={k: n for k, n in build.LAUNCHES.items() if n})
 
+    # 13. sharded: the giant image by MCU rows over SHARDS shards, against
+    # the single-device fused decode of the same bytes.
+    import importlib
+    import tempfile
+    from unittest import mock
+
+    from tpujpeg_torch.fixtures.tile import norst_jpeg, tile_jpeg
+    from tpujpeg_torch.parallel import halo
+
+    shard_mesh = (tuple(torch.device("cuda", i) for i in range(SHARDS))
+                  if torch.cuda.device_count() >= SHARDS else (dev,) * SHARDS)
+    tensor_cfg = tpujpeg_torch.DecodeConfig(to_numpy=False)
+    t0 = time.perf_counter()
+    giant = tile_jpeg(datas["420_2048"], GIANT_TILES, GIANT_TILES)
+    t_tile = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gjpeg = parse(giant)
+    t_gparse = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gplan = wf.build_block_plan([gjpeg])
+    t_gplan = time.perf_counter() - t0
+    gframe = gjpeg.frame
+    check((gframe.width, gframe.height) == (2048 * GIANT_TILES,) * 2, f"giant {gframe.width}x{gframe.height}")
+    windows = halo.shard_windows(gframe, SHARDS)
+    check(len(windows) == SHARDS, f"giant: {len(windows)} shards with rows")
+    per_call = {"wavefront_coeff": 1, "dequant_idct_islow": 3 * SHARDS, "upsample_color_h2v2": SHARDS}
+    gmp = gframe.width * gframe.height / 1e6
+
+    def timed_peak(fn):
+        """fn() once as a warm-up and 3 timed calls: (last result, walls,
+        peak bytes allocated above what was allocated before)."""
+        out, walls = None, []
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(4):
+            out = None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            if i:
+                walls.append(time.perf_counter() - t0)
+        return out, walls, torch.cuda.max_memory_allocated() - base
+
+    def recorded(rec, key, fn):
+        """fn, with each call's (args, kwargs, result) appended to rec[key]."""
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            rec[key].append((args, kw, out))
+            return out
+        return call
+
+    h2v2 = pipeline._H2V2
+    b_kern, b_plain = color_fns["upsample_color_h2v2"]
+
+    build.LAUNCHES.clear()
+    gout, walls, peak = timed_peak(lambda: halo.decode_sharded(giant, config=tensor_cfg, mesh=shard_mesh))
+    sh_launches = {k: build.LAUNCHES.get(k, 0) for k in KERNELS}
+    check({k: n for k, n in sh_launches.items() if n} == {k: 4 * n for k, n in per_call.items()},
+          f"sharded giant launches {sh_launches}, want 4 x {per_call}")
+    build.LAUNCHES.clear()
+    grgb, fwalls, fpeak = timed_peak(lambda: tpujpeg_torch.decode_batch_to_rgb([parse(giant)], device=dev))
+    check(not grgb[1], f"giant fused decode failures {grgb[1]}")
+    check(tuple(gout.shape) == (gframe.height, gframe.width, 3) and gout.device == dev,
+          f"sharded giant shape {tuple(gout.shape)} on {gout.device}")
+    check(torch.equal(gout, grgb[0][0]), "sharded giant RGB != the fused decode's")
+    del grgb
+    # One more call with the wrappers of kernels 2, 6 and B recorded: each
+    # launch's result against its plain version on the same inputs, on the
+    # card (these launches are not counted).
+    rec = collections.defaultdict(list)
+    with mock.patch.object(wf, "decode_lanes_to_coeffs", recorded(rec, "wavefront_coeff", wf.decode_lanes_to_coeffs)), \
+            mock.patch.object(idct, "dequant_idct_islow", recorded(rec, "dequant_idct_islow", idct.dequant_idct_islow)), \
+            mock.patch.dict(pipeline._NHWC_KERNELS, {h2v2: recorded(rec, "upsample_color_h2v2", b_kern)}):
+        check(torch.equal(halo.decode_sharded(giant, config=tensor_cfg, mesh=shard_mesh), gout),
+              "sharded giant: a recorded call's RGB differs")
+    check({k: len(v) for k, v in rec.items()} == per_call, f"sharded giant: recorded {list(map(len, rec.values()))}")
+    ((args2, kw2, (coef_k, err_k)),) = rec["wavefront_coeff"]
+    coef_p, err_p = wf.decode_lanes_to_coeffs(*args2, **{**kw2, "plain": True})
+    sh_err = {"wavefront_coeff": max(max_abs(torch, a, b) for a, b in zip(coef_k, coef_p))}
+    check(sh_err["wavefront_coeff"] == 0 and torch.equal(err_k, err_p) and not err_k.any(),
+          f"sharded giant: kernel 2 != plain ({sh_err})")
+    del coef_p, err_p
+    sh_err["dequant_idct_islow"] = max(max_abs(torch, out, idct.dequant_idct_islow_plain(*a))
+                                       for a, _kw, out in rec["dequant_idct_islow"])
+    sh_err["upsample_color_h2v2"] = max(max_abs(torch, out, b_plain(*a)) for a, _kw, out in rec["upsample_color_h2v2"])
+    check(not any(sh_err.values()), f"sharded giant: kernels != plain {sh_err}")
+    for k, e in sh_err.items():
+        results[k]["max_abs_err"] = max(results[k]["max_abs_err"], e)
+    # Device time of each step of the call, on the recorded inputs.
+    gplan_dev = args2[0].to(dev)
+    gcoeffs = [c[0] for c in coef_k]
+    gcoef_host = [c.cpu().numpy() for c in gcoeffs]
+    gplanes = halo.shard_planes(gjpeg, gcoeffs, shard_mesh)
+    sh_ms = {
+        "wavefront_coeff": device_ms(torch, lambda: wf.decode_lanes_to_coeffs(gplan_dev, *args2[1:], **kw2), 3),
+        "dequant_idct_islow": device_ms(torch, lambda: [idct.dequant_idct_islow(*a) for a, _kw, _o
+                                                        in rec["dequant_idct_islow"]], 3),
+        "color_and_crop": device_ms(torch, lambda: halo.color_shards(gjpeg, gplanes, config, shard_mesh), 3),
+    }
+    b_alone_ms = device_ms(torch, lambda: [b_kern(*a) for a, _kw, _o in rec["upsample_color_h2v2"]], 3)
+    gplan_dev = gplan.to(dev)
+    ggeoms = [wf.ImageGeom.of(gjpeg)]
+    fplanes = wf.decode_lanes_to_planes(gplan_dev, ggeoms, dev)[0]
+    fused_ms = {
+        "wavefront_pixels": device_ms(torch, lambda: wf.decode_lanes_to_planes(gplan_dev, ggeoms, dev), 3),
+        "upsample_color_h2v2": device_ms(torch, lambda: sc.upsample_color_h2v2(*cropped(gframe, fplanes)), 3),
+    }
+    del rec, coef_k, err_k, args2, kw2, gcoeffs, gplanes, fplanes, gplan_dev
+    for k, n in sh_launches.items():
+        launches[k] += n
+    emit("sharded", image=[gframe.height, gframe.width], megapixels=gmp, jpeg_bytes=len(giant), shards=SHARDS,
+         mesh=[str(d) for d in shard_mesh], calls=4, wall_s=walls, wall_median_s=statistics.median(walls),
+         mp_per_s=gmp / statistics.median(walls), tile_s=t_tile, parse_s=t_gparse, host_plan_s=t_gplan,
+         lanes=gplan.n_lanes, words=gplan.n_words, launches=sh_launches, per_call=per_call, kernel_ms=sh_ms,
+         kernels_ms_total=sum(sh_ms.values()), upsample_color_h2v2_alone_ms=b_alone_ms, peak_bytes=peak,
+         max_abs_err_vs_plain=sh_err,
+         fused=dict(wall_s=fwalls, wall_median_s=statistics.median(fwalls), kernel_ms=fused_ms,
+                    kernels_ms_total=sum(fused_ms.values()), peak_bytes=fpeak),
+         equal_to_fused=True)
+
+    # The same image as one marker-free scan (norst_jpeg: kernel 2's
+    # coefficients coded again with the file's tables, no DRI, no RSTn).
+    # decode_sharded takes decode_norst_sharded: kernel 2 per shard from
+    # zero DC predictors, the DC fixup across shards, the whole grid on
+    # mesh[0]. Against the single-device decodes of the same file:
+    # decode_norst_to_device's coefficients (and the restart-segmented
+    # image's), decode_norst_to_rgb's RGB (kernel A on the norst plan, B)
+    # and the restart-segmented image's RGB.
+    t0 = time.perf_counter()
+    ngiant = norst_jpeg(giant, gcoef_host)
+    t_encode = time.perf_counter() - t0
+    nj = parse(ngiant)
+    check(len(nj.scans) == 1 and len(nj.scans[0].rst_offsets) == 0, "norst giant: restart markers left")
+    t0 = time.perf_counter()
+    nplan = wf.build_norst_plan(nj)
+    t_nplan = time.perf_counter() - t0
+    n_per_call = {"wavefront_coeff": SHARDS, "dequant_idct_islow": 3 * SHARDS, "upsample_color_h2v2": SHARDS}
+    build.LAUNCHES.clear()
+    nout, nwalls, npeak = timed_peak(lambda: halo.decode_sharded(ngiant, config=tensor_cfg, mesh=shard_mesh))
+    n_launches = {k: build.LAUNCHES.get(k, 0) for k in KERNELS}
+    check({k: n for k, n in n_launches.items() if n} == {k: 4 * n for k, n in n_per_call.items()},
+          f"norst giant launches {n_launches}, want 4 x {n_per_call}")
+    for k, n in n_launches.items():
+        launches[k] += n
+    check(torch.equal(nout, gout), "norst giant: sharded RGB != the restart-segmented image's")
+    del nout
+    nrgb, nfwalls, nfpeak = timed_peak(lambda: wf.decode_norst_to_rgb(parse(ngiant), config, device=dev))
+    check(torch.equal(nrgb, gout), "norst giant: decode_norst_to_rgb != the sharded RGB")
+    del nrgb
+    got_c, ncwalls, ncpeak = timed_peak(lambda: wf.decode_norst_sharded(parse(ngiant), config, mesh=shard_mesh))
+    want_c, nswalls, nspeak = timed_peak(lambda: wf.decode_norst_to_device(parse(ngiant), config, device=dev))
+    check(all(torch.equal(a, b) and torch.equal(a.cpu(), torch.from_numpy(h).reshape(a.shape))
+              for a, b, h in zip(got_c, want_c, gcoef_host)),
+          "norst giant: decode_norst_sharded != decode_norst_to_device or the restart image's coefficients")
+    del got_c, want_c, gcoef_host
+    emit("sharded", image=[gframe.height, gframe.width], entry="decode_sharded (marker-free)",
+         jpeg_bytes=len(ngiant), shards=SHARDS, encode_s=t_encode, host_split_s=t_nplan,
+         lanes=nplan.n_lanes, words=nplan.n_words, mcus_per_lane=nplan.n_mcus, calls=4, wall_s=nwalls,
+         wall_median_s=statistics.median(nwalls), mp_per_s=gmp / statistics.median(nwalls), launches=n_launches,
+         per_call=n_per_call, peak_bytes=npeak,
+         fused=dict(entry="decode_norst_to_rgb", wall_s=nfwalls, wall_median_s=statistics.median(nfwalls),
+                    peak_bytes=nfpeak),
+         coeffs=dict(sharded_wall_s=ncwalls, sharded_peak_bytes=ncpeak, single_wall_s=nswalls,
+                     single_peak_bytes=nspeak),
+         equal_to_restart_image=True, equal_to_fused=True, coeffs_equal=True)
+    del gout, gplan, gjpeg, giant, ngiant, nj, nplan
+
+    # 14. The fixtures through decode_sharded on SHARDS shards, each hashing
+    # to PIL's: kernel 6 per component and shard, the sampling's color
+    # kernel per shard (none for gray), kernel 2 once per restart-segmented
+    # scan and once per shard for the marker-free one.
+    color_kernel = {"420_2048": "upsample_color_h2v2", "norst_2048": "upsample_color_h2v2",
+                    "422_2048": "upsample_color_h2v1", "444_2048": "color_444", "gray": None}
+    for name in ("norst_2048", "422_2048", "444_2048", "gray"):
+        fr = parse(datas[name]).frame
+        live = sum(a < b for a, b in halo.shard_spans(fr, SHARDS))
+        want_k = {"wavefront_coeff": SHARDS if name == NORST_MAIN else 1,
+                  "dequant_idct_islow": live * fr.n_components}
+        if color_kernel[name]:
+            want_k[color_kernel[name]] = live
+        build.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = halo.decode_sharded(datas[name], config=config, mesh=shard_mesh)
+        seconds = time.perf_counter() - t0
+        got = {k: n for k, n in build.LAUNCHES.items() if n}
+        check(hashlib.sha256(out.tobytes()).hexdigest() == manifest["fixtures"][name]["pil_sha256"],
+              f"decode_sharded({name}) != PIL")
+        check(got == want_k, f"decode_sharded({name}) launched {got}, want {want_k}")
+        for k, n in got.items():
+            launches[k] += n
+        emit("sharded", fixture=name, shards=SHARDS, shards_with_rows=live, seconds=seconds, launches=got)
+    nj = parse(datas[NORST_MAIN])
+    build.LAUNCHES.clear()
+    got_c = wf.decode_norst_sharded(nj, config, mesh=shard_mesh)
+    check(build.LAUNCHES["wavefront_coeff"] == SHARDS, f"decode_norst_sharded launches {dict(build.LAUNCHES)}")
+    launches["wavefront_coeff"] += SHARDS
+    want_c = wf.decode_norst_to_device(nj, config, device=dev)
+    check(all(torch.equal(a, b) for a, b in zip(got_c, want_c)),
+          "decode_norst_sharded coefficients != decode_norst_to_device's")
+    emit("sharded", entry="decode_norst_sharded", fixture=NORST_MAIN, shards=SHARDS,
+         equal_to_decode_norst_to_device=True)
+    del got_c, want_c
+
+    # 15. Data parallel: the main batch over the mesh, and decode_batch's
+    # transforms split over it on the batch phase's list.
+    djpegs = [parse(datas["420_2048"]) for _ in range(MAIN_BATCH)]
+    build.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec = collections.defaultdict(list)
+    with mock.patch.object(wf, "decode_lanes_to_planes", recorded(rec, "wavefront_pixels", wf.decode_lanes_to_planes)), \
+            mock.patch.dict(pipeline._NHWC_KERNELS, {h2v2: recorded(rec, "upsample_color_h2v2", b_kern)}):
+        drgbs, failures = wf.decode_batch_to_rgb_sharded(djpegs, config, mesh=shard_mesh)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = {k: n for k, n in build.LAUNCHES.items() if n}
+    check(not failures, f"decode_batch_to_rgb_sharded failures {failures}")
+    check(got == {"wavefront_pixels": SHARDS, "upsample_color_h2v2": SHARDS},
+          f"decode_batch_to_rgb_sharded launched {got}")
+    check(len(drgbs) == SHARDS and sum(r.shape[0] for r in drgbs) == MAIN_BATCH, "sharded batch shapes")
+    check(all(torch.equal(r[i], main_image.to(r.device)) for r in drgbs for i in range(r.shape[0])),
+          "decode_batch_to_rgb_sharded RGB != the main path's")
+    for k, n in got.items():
+        launches[k] += n
+    # Each shard's A and B launch against its plain version on the same
+    # inputs (the comparison's launches are not counted).
+    check({k: len(v) for k, v in rec.items()} == {"wavefront_pixels": SHARDS, "upsample_color_h2v2": SHARDS},
+          f"data parallel: recorded {list(map(len, rec.values()))}")
+    dp_err = {"wavefront_pixels": 0}
+    for a, kw, (planes_k, err_k) in rec["wavefront_pixels"]:
+        planes_p, err_p = wf.decode_lanes_to_planes(*a, **{**kw, "plain": True})
+        check(torch.equal(err_k, err_p), "data parallel: kernel A's error bits != plain")
+        dp_err["wavefront_pixels"] = max([dp_err["wavefront_pixels"]]
+                                         + [max_abs(torch, x, y) for x, y in zip(planes_k, planes_p)])
+    dp_err["upsample_color_h2v2"] = max(max_abs(torch, out, b_plain(*a)) for a, _kw, out in rec["upsample_color_h2v2"])
+    check(not any(dp_err.values()), f"data parallel: kernels != plain {dp_err}")
+    for k, e in dp_err.items():
+        results[k]["max_abs_err"] = max(results[k]["max_abs_err"], e)
+    emit("data_parallel", entry="decode_batch_to_rgb_sharded", images=MAIN_BATCH, shards=SHARDS,
+         seconds=seconds, launches=got, max_abs_err_vs_plain=dp_err)
+    del drgbs, djpegs, rec
+    build.LAUNCHES.clear()
+    res = tpujpeg_torch.decode_batch(bdatas, config, mesh=shard_mesh)
+    got_err = {i: type(e).__name__ for i, e in res.errors.items()}
+    check(got_err == want_err, f"decode_batch(mesh): failures {got_err}, want {want_err}")
+    for i, n in enumerate(names):
+        check(hashlib.sha256(res.images[i].tobytes()).hexdigest() == manifest["fixtures"][n]["pil_sha256"],
+              f"decode_batch(mesh): {n} != PIL")
+    got = {k: n for k, n in build.LAUNCHES.items() if n}
+    for k, n in got.items():
+        launches[k] += n
+    emit("data_parallel", entry="decode_batch", images=len(bdatas), shards=SHARDS, failures=got_err, launches=got)
+    del res
+
+    # 16. cli: python -m tpujpeg_torch.cli in a subprocess.
+    def run_cli(*args, rc=0):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "tpujpeg_torch.cli", *args], capture_output=True,
+                             text=True, timeout=600, cwd=HERE)
+        check(res.returncode == rc, f"cli {args[0]}: exit code {res.returncode}, want {rc}: {res.stderr[-2000:]}")
+        return res.stdout, time.perf_counter() - t0
+
+    fx = os.path.join(FIXTURES, manifest["fixtures"]["420_odd"]["file"])
+    with tempfile.TemporaryDirectory() as tmp:
+        out, s_info = run_cli("info", fx)
+        info, fj = json.loads(out), parse(datas["420_odd"])
+        check((info["width"], info["height"], info["segments"])
+              == (fj.frame.width, fj.frame.height, sum(len(sc_.rst_offsets) + 1 for sc_ in fj.scans)),
+              f"cli info {info}")
+        npy = os.path.join(tmp, "out.npy")
+        out, s_decode = run_cli("decode", fx, npy)
+        check(hashlib.sha256(np.load(npy).tobytes()).hexdigest() == manifest["fixtures"]["420_odd"]["pil_sha256"],
+              "cli decode .npy != PIL")
+        out, s_bench = run_cli("bench", fx, "--repeats", "3")
+        bench = json.loads(out.strip().splitlines()[-1])
+        check(bench["entropy_engine"] == "wavefront-fused", f"cli bench {bench}")
+        files = [os.path.join(FIXTURES, manifest["fixtures"][n]["file"]) for n in CLI_FILES]
+        jobs = os.path.join(tmp, "batch")
+        counts = []
+        for extra, rc in (((), 0), ((), 0), ((b"not a jpeg",), 2)):
+            paths = list(files)
+            for k, payload in enumerate(extra):
+                paths.append(os.path.join(tmp, f"bad{k}.jpg"))
+                with open(paths[-1], "wb") as f:
+                    f.write(payload)
+            out, _s = run_cli("batch", *paths, "--out", jobs, "--on-device", rc=rc)
+            counts.append(json.loads(out))
+        n_files = len(files)
+        check(counts == [{"completed": n_files, "skipped": 0, "failed": 0},
+                         {"completed": 0, "skipped": n_files, "failed": 0},
+                         {"completed": 0, "skipped": n_files, "failed": 1}], f"cli batch counters {counts}")
+        for n in CLI_FILES:
+            stem = os.path.splitext(manifest["fixtures"][n]["file"])[0]
+            got = [f for f in os.listdir(jobs) if f.startswith(stem + ".") and f.endswith(".npy")]
+            check(len(got) == 1 and hashlib.sha256(np.load(os.path.join(jobs, got[0])).tobytes()).hexdigest()
+                  == manifest["fixtures"][n]["pil_sha256"], f"cli batch {n} != PIL")
+    emit("cli", info_s=s_info, decode_s=s_decode, bench_s=s_bench, bench=bench, batch=counts)
+
+    # The modules of the sharded paths and front ends (the cli and the
+    # batch job ran in subprocesses) come from tpujpeg_torch/, and load
+    # nothing of tpujpeg/ (the checks below).
+    port_dir = os.path.join(HERE, "tpujpeg_torch") + os.sep
+    for name in ("tpujpeg_torch.cli", "tpujpeg_torch.parallel.halo", "tpujpeg_torch.parallel.mesh",
+                 "tpujpeg_torch.parallel.manifest", "tpujpeg_torch.fixtures.tile"):
+        check(os.path.abspath(importlib.import_module(name).__file__).startswith(port_dir),
+              f"{name} not loaded from the port")
     loaded = sorted(m for m in ("jax", "jaxlib", "PIL", "tpujpeg") if m in sys.modules)
     check(not loaded, f"the port loaded {loaded}")
     ref_dir = os.path.join(HERE, "tpujpeg") + os.sep

@@ -858,3 +858,112 @@ def test_pinned_plan_equals_pageable_plan(cuda):
     torch.cuda.synchronize()
     for x, y in zip(got[0] + [got[1]], want[0] + [want[1]]):
         assert torch.equal(x, y)
+
+
+# --- the sharded paths on one card: a mesh of (cuda:0,) * shards
+
+
+def _sha(t):
+    import hashlib
+
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+@pytest.mark.parametrize("name,n", [("420_2048", 4), ("420_odd", 3), ("norst_2048", 4), ("422_2048", 4),
+                                    ("444_2048", 4), ("gray", 4), ("rst_rows_420", 4), ("multiscan", 2),
+                                    ("prog_444", 4)])
+def test_decode_sharded_on_card_matches_pil_hashes(cuda, name, n):
+    """decode_sharded on n shards of one card: the RGB hashes to PIL's;
+    kernel 6 runs once per component and shard; the color kernel of the
+    sampling once per shard; kernel 2 once for a restart-segmented scan
+    and once per shard for a marker-free one."""
+    from tpujpeg_torch.parallel import halo
+
+    build.LAUNCHES.clear()
+    out = halo.decode_sharded(_read(name), config=tpujpeg_torch.DecodeConfig(to_numpy=False), mesh=(cuda,) * n)
+    torch.cuda.synchronize()
+    assert _sha(out) == MANIFEST["fixtures"][name]["pil_sha256"]
+    frame = tpujpeg_torch.bitstream.parse(_read(name)).frame
+    live = sum(a < b for a, b in halo.shard_spans(frame, n))
+    assert build.LAUNCHES["dequant_idct_islow"] == live * frame.n_components
+    color = {"420_2048": "upsample_color_h2v2", "420_odd": "upsample_color_h2v2", "norst_2048": "upsample_color_h2v2",
+             "rst_rows_420": "upsample_color_h2v2", "422_2048": "upsample_color_h2v1", "444_2048": "color_444",
+             "multiscan": "upsample_color_h2v2", "prog_444": "color_444"}.get(name)
+    colors = ("upsample_color_h2v2", "upsample_color_h2v1", "color_444")
+    assert {k: build.LAUNCHES[k] for k in colors if build.LAUNCHES[k]} == ({color: live} if color else {})
+    kernel_2 = {"norst_2048": n, "420_2048": 1, "420_odd": 1, "422_2048": 1, "444_2048": 1, "gray": 1}
+    if name in kernel_2:
+        assert build.LAUNCHES["wavefront_coeff"] == kernel_2[name]
+    assert build.LAUNCHES["wavefront_pixels"] == 0
+
+
+def test_norst_sharded_on_card_equals_single_device(cuda):
+    jpeg = tpujpeg_torch.bitstream.parse(_read("norst_2048"))
+    for every in (0, 1):
+        build.LAUNCHES.clear()
+        got = wf.decode_norst_sharded(jpeg, every=every, mesh=(cuda,) * 4)
+        assert build.LAUNCHES["wavefront_coeff"] == 4
+        want = wf.decode_norst_to_device(jpeg, every=every, device=cuda)
+        for a, b in zip(got, want):
+            assert a.device == cuda and torch.equal(a, b)
+
+
+def test_sharded_giant_tile_equals_fused_decode(cuda):
+    """420_2048 tiled 2 x 2 (tile_jpeg) on 4 shards equals the fused
+    single-device decode of the same bytes."""
+    from tpujpeg_torch.fixtures.tile import tile_jpeg
+    from tpujpeg_torch.parallel import halo
+
+    data = tile_jpeg(_read("420_2048"), 2, 2)
+    out = halo.decode_sharded(data, config=tpujpeg_torch.DecodeConfig(to_numpy=False), mesh=(cuda,) * 4)
+    rgb, failures = tpujpeg_torch.decode_batch_to_rgb([tpujpeg_torch.bitstream.parse(data)], device=cuda)
+    assert not failures and torch.equal(out, rgb[0])
+
+
+def test_decode_batch_to_rgb_sharded_on_card(cuda):
+    jpegs = [tpujpeg_torch.bitstream.parse(_read("420_odd")) for _ in range(4)]
+    build.LAUNCHES.clear()
+    rgbs, failures = wf.decode_batch_to_rgb_sharded(jpegs, mesh=(cuda,) * 2)
+    assert not failures and build.LAUNCHES["wavefront_pixels"] == 2
+    want, _ = tpujpeg_torch.decode_batch_to_rgb(jpegs, device=cuda)
+    assert torch.equal(torch.cat(rgbs), want)
+
+
+def test_decode_batch_over_a_card_mesh(cuda):
+    names = ["420_odd", "422", "444", "gray", "420_odd"]
+    res = tpujpeg_torch.decode_batch([_read(n) for n in names], mesh=(cuda,) * 2)
+    assert not res.errors
+    for n, img in zip(names, res.images):
+        import hashlib
+
+        assert hashlib.sha256(img.tobytes()).hexdigest() == MANIFEST["fixtures"][n]["pil_sha256"]
+
+
+def test_sharded_paths_over_every_card(cuda):
+    """One shard per card (skips with fewer than two): decode_sharded of a
+    tiled image equals the fused decode on card 0, decode_norst_sharded's
+    coefficients decode_norst_to_device's, decode_batch_to_rgb_sharded
+    puts each chunk on its card, and decode_batch(mesh=...) hashes to PIL."""
+    from tpujpeg_torch.fixtures.tile import tile_jpeg
+    from tpujpeg_torch.parallel import halo
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA cards: one shard per card")
+    mesh = tuple(torch.device("cuda", i) for i in range(torch.cuda.device_count()))
+    data = tile_jpeg(_read("420_2048"), 4, 4)
+    out = halo.decode_sharded(data, config=tpujpeg_torch.DecodeConfig(to_numpy=False), mesh=mesh)
+    rgb, failures = tpujpeg_torch.decode_batch_to_rgb([tpujpeg_torch.bitstream.parse(data)], device=cuda)
+    assert not failures and out.device == mesh[0] and torch.equal(out, rgb[0])
+    jpeg = tpujpeg_torch.bitstream.parse(_read("norst_2048"))
+    for a, b in zip(wf.decode_norst_sharded(jpeg, mesh=mesh), wf.decode_norst_to_device(jpeg, device=cuda)):
+        assert torch.equal(a, b)
+    jpegs = [tpujpeg_torch.bitstream.parse(_read("420_odd")) for _ in mesh]
+    rgbs, failures = wf.decode_batch_to_rgb_sharded(jpegs, mesh=mesh)
+    want, _ = tpujpeg_torch.decode_batch_to_rgb(jpegs, device=cuda)
+    assert not failures and [r.device for r in rgbs] == list(mesh)
+    assert all(torch.equal(r[0].to(cuda), want[i]) for i, r in enumerate(rgbs))
+    names = ["420_odd", "422", "444", "gray"] * 2
+    res = tpujpeg_torch.decode_batch([_read(n) for n in names], mesh=mesh)
+    assert not res.errors
+    for n, img in zip(names, res.images):
+        assert _sha(torch.from_numpy(img)) == MANIFEST["fixtures"][n]["pil_sha256"]

@@ -119,11 +119,23 @@ def _python_files():
     yield os.path.join(ROOT, "chip_smoke.py")
 
 
+# The one PIL import a port source may hold: the command line's image
+# writer imports PIL inside the function, for formats other than PPM, PGM
+# and NPY, as the reference's cli does; decoding never loads it (the test
+# above).
+LAZY_PIL = {"tpujpeg_torch/cli.py"}
+
+
 def test_no_jax_or_pil_import_in_port_sources():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|PIL|tpujpeg)\b", re.M)
+    lazy_pil = re.compile(r"^[ \t]+(import|from)\s+PIL\b", re.M)
     offenders = []
     for path in _python_files():
+        rel = os.path.relpath(path, ROOT)
         with open(path) as f:
-            if pattern.search(f.read()):
-                offenders.append(os.path.relpath(path, ROOT))
+            src = f.read()
+        if rel in LAZY_PIL:
+            src = lazy_pil.sub("", src)
+        if pattern.search(src):
+            offenders.append(rel)
     assert not offenders

@@ -106,7 +106,8 @@ def test_native_library_builds_into_the_port():
 # the port, decodes on the staged path (native entropy, kernel 6's and
 # kernel B's plain versions), the fused path (the native row packer) and
 # through the parallel/ modules (the stream, whose fallback runs the batch
-# ladder), and reports what was loaded.
+# ladder; a tiled image through the sharded decode on two CPU shards), and
+# reports what was loaded.
 _PROBE = r"""
 import json, os, sys
 root, ref, path = sys.argv[1:4]
@@ -131,9 +132,14 @@ data = open(path, "rb").read()
 img, stats = tpujpeg_torch.decode(data, device="cpu", return_stats=True)
 rgb, failures = tpujpeg_torch.decode_batch_to_rgb(
     [tpujpeg_torch.bitstream.parse(open(path + ".rst", "rb").read())], device="cpu")
-from tpujpeg_torch.parallel import batch, stream
+from tpujpeg_torch.parallel import batch, stream, halo, mesh, manifest
+from tpujpeg_torch import cli
+from tpujpeg_torch.fixtures import tile
 res = stream.decode_batch_pipelined([data, open(path + ".rst", "rb").read()], chunk_size=1, device="cpu")
 failures = {**failures, **res.errors}
+sharded = halo.decode_sharded(tile.tile_jpeg(open(path + ".rst", "rb").read(), 2, 1), mesh=("cpu",) * 2)
+if sharded.shape != (48, 128, 3):
+    failures["sharded"] = sharded.shape
 names = ("jax", "jaxlib", "tpujpeg")
 loaded = sorted(m for m in sys.modules if m in names or m.startswith(tuple(n + "." for n in names))
                 or m.endswith("._shared") or "._shared." in m)

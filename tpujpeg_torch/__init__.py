@@ -34,7 +34,8 @@ Public API:
                                                       DC int32 [blocks], failures)
     decode_batch_on_device(datas, config, device) -> BatchResult: mixed JPEG bytes,
                                                      bucketed, each image fault-isolated
-    decode_batch(datas, config, device)           -> BatchResult: host entropy, device transform
+    decode_batch(datas, config, device, mesh)     -> BatchResult: host entropy, device transform
+                                                     (split over a mesh of devices)
     decode_stream(datas, config, chunk_size, depth, prep_workers, layout, device)
                                                   -> StreamChunk per chunk, in order: host prep
                                                      on threads overlapped with the device
@@ -46,6 +47,14 @@ Public API:
 packed16 form where it applies (4:2:0 and 4:2:2 YCbCr, even width):
 planar uint16 [3, H, W/2] per image whose little-endian bytes are the
 planar uint8 raster.
+
+Sharded over a mesh (a tuple of ``torch.device``, one per shard, driven
+from one process; ``parallel/mesh.py``): ``parallel.halo.decode_sharded(
+data, n_shards, config, mesh)`` decodes one giant image by MCU rows with
+halo rows between shards; ``kernels.wavefront.decode_norst_sharded`` and
+``decode_batch_to_rgb_sharded`` split a marker-free scan's lanes and a
+uniform batch over the mesh. The command line is ``python -m
+tpujpeg_torch.cli``.
 
 A progressive group (images with one ``wavefront_prog.scan_group_key``:
 same frame, scan script and Huffman tables) decodes through the

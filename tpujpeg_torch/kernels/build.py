@@ -253,6 +253,15 @@ def stream_of(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def call(device: torch.device, entry: str, *args) -> int:
+    """The library's C entry `entry` on `args` and the current stream of
+    `device`, with `device` made current for the call: a kernel launches
+    into the current device's context, so a stream of another card would
+    fail. Returns the entry's CUDA error code."""
+    with torch.cuda.device(device):
+        return getattr(get_lib(), entry)(*args, stream_of(device))
+
+
 def raise_on_error(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")

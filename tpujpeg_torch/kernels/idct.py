@@ -78,10 +78,9 @@ def dequant_idct_islow(coeffs: torch.Tensor, qtab: torch.Tensor, padded_hb: int,
     dc = dc.contiguous() if dc is not None else None
     build.check_aligned("dequant_idct_islow", [coeffs])  # read as int4
     out = torch.empty((n, padded_hb * 8, padded_wb * 8), dtype=torch.uint8, device=dev)
-    rc = build.get_lib().tj_dequant_idct_islow(
-        coeffs.data_ptr(), qtab.data_ptr(), int(qtab.dim() == 2),
-        dc.data_ptr() if dc is not None else None,
-        n, padded_hb, padded_wb, out.data_ptr(), build.stream_of(dev),
+    rc = build.call(
+        dev, "tj_dequant_idct_islow", coeffs.data_ptr(), qtab.data_ptr(), int(qtab.dim() == 2),
+        dc.data_ptr() if dc is not None else None, n, padded_hb, padded_wb, out.data_ptr(),
     )
     build.raise_on_error(rc, "dequant_idct_islow")
     build.LAUNCHES["dequant_idct_islow"] += 1

@@ -819,7 +819,6 @@ def _launch_wavefront(plan: LanePlan, layout: PlaneLayout, outs: Sequence[torch.
     table sets go by value in the kernel's arguments and the quantizers
     stay in the plan's zigzag order, so nothing is copied to the card and
     the launch never waits for the stream."""
-    lib = build.get_lib()
     dev = plan.bits.device
     B = plan.blocks_per_mcu
     nq = int(plan.qsets.shape[0])
@@ -856,29 +855,30 @@ def _launch_wavefront(plan: LanePlan, layout: PlaneLayout, outs: Sequence[torch.
     bit0 = plan.bit0.data_ptr() if plan.bit0 is not None else None
     dc0 = plan.dc0.data_ptr() if plan.dc0 is not None else None
     if emit == "pixels":
-        rc = lib.tj_wavefront_pixels(
-            plan.bits.data_ptr(), W, P,
+        rc = build.call(
+            dev, "tj_wavefront_pixels", plan.bits.data_ptr(), W, P,
             plan.seg_bits.data_ptr(), plan.lane_m.data_ptr(), plan.lane_qset.data_ptr(),
             plan.lane_meta.data_ptr(), bit0, dc0, L,
             plan.tables.data_ptr(), plan.huffval.data_ptr(), plan.qsets.data_ptr(),
             blk.ctypes.data, comp.ctypes.data, lut_of.ctypes.data, B, nq, len(outs), layout.mcus_x,
-            *ptrs, err.data_ptr(), build.stream_of(dev),
+            *ptrs, err.data_ptr(),
         )
     else:
-        rc = lib.tj_wavefront_coeff(
-            plan.bits.data_ptr(), W, P,
+        rc = build.call(
+            dev, "tj_wavefront_coeff", plan.bits.data_ptr(), W, P,
             plan.seg_bits.data_ptr(), plan.lane_m.data_ptr(), plan.lane_meta.data_ptr(),
             bit0, dc0, L, plan.tables.data_ptr(), plan.huffval.data_ptr(),
             blk.ctypes.data, comp.ctypes.data, lut_of.ctypes.data, B, len(outs), layout.mcus_x,
-            *ptrs, err.data_ptr(), build.stream_of(dev),
+            *ptrs, err.data_ptr(),
         )
     build.raise_on_error(rc, name)
     build.LAUNCHES[name] += 1
 
 
-def _decode_lanes(plan: LanePlan, geoms: Sequence[ImageGeom], device, plain: bool, emit: str):
+def _decode_lanes(plan: LanePlan, geoms: Sequence[ImageGeom], device, plain: bool, emit: str,
+                  layout: Optional[PlaneLayout] = None):
     device = torch.device(device)
-    layout = PlaneLayout.of(geoms[0])
+    layout = layout or PlaneLayout.of(geoms[0])
     plan = plan.to(device)
     outs = layout.alloc(len(geoms), device, emit)
     err = torch.zeros(plan.n_lanes, dtype=torch.int32, device=device)
@@ -904,7 +904,8 @@ def decode_lanes_to_planes(
 
 
 def decode_lanes_to_coeffs(
-    plan: LanePlan, geoms: Sequence[ImageGeom], device, *, plain: bool = False
+    plan: LanePlan, geoms: Sequence[ImageGeom], device, *, plain: bool = False,
+    layout: Optional[PlaneLayout] = None,
 ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """Decode every lane of `plan` on `device` to coefficients. Returns
     (coeffs, err): per scan component (frame component order for an
@@ -912,8 +913,11 @@ def decode_lanes_to_coeffs(
     with absolute DCs, the reference's ``assemble`` layout (pad blocks of
     a non-interleaved grid stay 0), and the per-lane error bits int32[L].
     On a CUDA device this launches kernel 2; on the CPU it runs the
-    plain version; ``plain=True`` runs the plain version on any device."""
-    return _decode_lanes(plan, geoms, device, plain, "coeff")
+    plain version; ``plain=True`` runs the plain version on any device.
+    `layout` (default: the first image's) places the blocks; a layout
+    whose planes hold fewer rows takes a plan whose MCU indices start at
+    its first row (``decode_norst_sharded``'s row windows)."""
+    return _decode_lanes(plan, geoms, device, plain, "coeff", layout)
 
 
 # ---------------------------------------------------------------------------
@@ -1059,6 +1063,159 @@ def decode_norst_to_rgb(jpeg, config: DecodeConfig = DEFAULT_CONFIG, every: int 
     if failures:
         raise failures[0]
     return rgb[0]
+
+
+# ---------------------------------------------------------------------------
+# Sharded entries: one process, a mesh of devices (parallel/mesh.py)
+# ---------------------------------------------------------------------------
+
+
+def _norst_window(plan: LanePlan, lo: int, hi: int, layout: PlaneLayout):
+    """Lanes [lo, hi) of a norst plan as a plan of their own that starts
+    every lane with zero DC predictors (``dc0`` zeroed), and the layout of
+    the rows their MCUs touch: layout rows (MCU rows; block rows of a
+    non-interleaved scan) [r0, r1), with the plan's MCU indices counted
+    from row r0. Returns (plan, layout, r0)."""
+    meta = plan.lane_meta[lo:hi].clone()
+    m0, m1 = int(meta[0, 1]), int(meta[-1, 1] + meta[-1, 2])
+    r0, r1 = m0 // layout.mcus_x, -(-m1 // layout.mcus_x)
+    meta[:, 1] -= r0 * layout.mcus_x
+    sub = dataclasses.replace(
+        plan, bits=plan.bits[lo:hi], seg_bits=plan.seg_bits[lo:hi], lane_m=plan.lane_m[lo:hi],
+        lane_qset=plan.lane_qset[lo:hi], lane_meta=meta, bit0=plan.bit0[lo:hi],
+        dc0=torch.zeros_like(plan.dc0[lo:hi]), n_mcus=int(plan.lane_m[lo:hi].max()),
+        lane_seg=plan.lane_seg[lo:hi], seg_first=None,
+    )
+    win = dataclasses.replace(
+        layout, comp=tuple((h, v, (r1 - r0) * v * 8, pw) for h, v, _ph, pw in layout.comp))
+    return sub, win, r0
+
+
+def _lane_dc_totals(coeffs: Sequence[torch.Tensor], plan: LanePlan, layout: PlaneLayout) -> torch.Tensor:
+    """int32 [L, C]: per lane, the DC of each component's last block in
+    the lane's last MCU, which, decoded from zero predictors, is the sum
+    of the lane's DC deltas of that component. coeffs are
+    ``decode_lanes_to_coeffs``' outputs (frame component order)."""
+    dev = coeffs[0].device
+    meta = plan.lane_meta.to(dev, torch.int64)
+    g = meta[:, 1] + meta[:, 2] - 1
+    my, mx = g // layout.mcus_x, g % layout.mcus_x
+    cols = []
+    for out, sp in zip(coeffs, layout.out_order):
+        h, v, _ph, pw = layout.comp[sp]
+        cols.append(out[0, (my * v + v - 1) * (pw // 8) + mx * h + h - 1, 0])
+    return torch.stack(cols, dim=1)
+
+
+def _add_lane_dc(coeffs: Sequence[torch.Tensor], plan: LanePlan, layout: PlaneLayout,
+                 add: torch.Tensor) -> None:
+    """Add add[l, c] (int32 [L, C]) to the DC of every block of component
+    c in lane l's MCUs, in place; blocks of no lane of the plan (the
+    window's rows outside it, pad columns) stay as they are."""
+    dev = coeffs[0].device
+    m0, total = int(plan.lane_meta[0, 1]), int(plan.lane_m.sum())
+    _h0, v0, ph0, _pw0 = layout.comp[0]
+    mcu_add = torch.zeros((ph0 // 8 // v0 * layout.mcus_x, add.shape[1]), dtype=torch.int32, device=dev)
+    mcu_add[m0 : m0 + total] = torch.repeat_interleave(
+        add, plan.lane_m.to(dev, torch.int64), dim=0, output_size=total)
+    for c, (out, sp) in enumerate(zip(coeffs, layout.out_order)):
+        h, v, ph, pw = layout.comp[sp]
+        br = torch.arange(ph // 8, device=dev)[:, None]
+        bc = torch.arange(pw // 8, device=dev)[None, :]
+        mcu = (br // v) * layout.mcus_x + torch.clamp(bc // h, max=layout.mcus_x - 1)
+        out[0, :, 0] += torch.where(bc < layout.mcus_x * h, mcu_add[mcu, c], 0).reshape(-1)
+
+
+def decode_norst_sharded(jpeg, config: DecodeConfig = DEFAULT_CONFIG, every: int = 0,
+                         mesh=None) -> List[torch.Tensor]:
+    """Coefficient decode of one marker-free baseline scan with its lanes
+    sharded over `mesh` (default: every visible CUDA device; it raises
+    without a card). ``build_norst_plan`` runs once; shard i takes the
+    contiguous lanes [i * per, (i + 1) * per), per = ceil(lanes / shards)
+    (the reference's padding lanes decode nothing, so none are made, and
+    a shard past the last lane does no work), and runs kernel 2 on them
+    from zero DC predictors, never the plan's primed ``dc0``, into the
+    rows its MCUs touch. Then the reference's fixup: each lane's DC
+    total, an exclusive prefix within the shard, ``halo.dc_prefix_fixup``
+    across shards, and the sum added to every DC of the lane. Returns per
+    frame component (scan component for a non-interleaved scan) int32
+    [padded_blocks, 64] zigzag coefficients on ``mesh[0]``, equal to
+    ``decode_norst_to_device``'s. Raises JpegUnsupportedError on a
+    restart-segmented scan, as the reference does, and the lowest failing
+    lane's error."""
+    from ..parallel import halo, mesh as mesh_lib
+
+    mesh = mesh_lib.data_mesh(mesh)
+    if jpeg.scans and len(jpeg.scans[0].rst_offsets):
+        # One predictor chain across shards: restart-segmented streams
+        # with oversize segments take the single-device segmented path.
+        raise JpegUnsupportedError("sharded skeleton decode: marker-free streams only")
+    plan = build_norst_plan(jpeg, every)
+    geoms = [ImageGeom.of(jpeg)]
+    layout = PlaneLayout.of(geoms[0])
+    per = -(-plan.n_lanes // len(mesh))
+    shards = []
+    for s, dev in enumerate(mesh):
+        lo, hi = s * per, min(plan.n_lanes, (s + 1) * per)
+        if lo >= hi:
+            break
+        sub, win, r0 = _norst_window(plan, lo, hi, layout)
+        coeffs, err = decode_lanes_to_coeffs(sub, geoms, dev, layout=win)
+        shards.append((sub, win, r0, coeffs, err))
+    totals = [_lane_dc_totals(coeffs, sub, win) for sub, win, _r0, coeffs, _err in shards]
+    bases = halo.dc_prefix_fixup([t.sum(0).to(torch.int32) for t in totals])
+    for (sub, win, _r0, coeffs, _err), tot, base in zip(shards, totals, bases):
+        _add_lane_dc(coeffs, sub, win, (torch.cumsum(tot, 0) - tot + base).to(torch.int32))
+    # Each shard's rows added into the whole grid: a block outside a
+    # shard's lanes is 0 there.
+    out = []
+    for c, sp in enumerate(layout.out_order):
+        _h, v, ph, pw = layout.comp[sp]
+        full = torch.zeros((ph // 8, pw // 8, 64), dtype=torch.int32, device=mesh[0])
+        for _sub, _win, r0, coeffs, _err in shards:
+            part = coeffs[c].to(mesh[0], non_blocking=True).view(-1, pw // 8, 64)
+            full[r0 * v : r0 * v + part.shape[0]] += part
+        out.append(full.view(-1, 64))
+    errs = np.concatenate([err.cpu().numpy() for *_x, err in shards])
+    failures = failures_from_err(errs, plan.lane_meta.numpy())
+    if failures:
+        raise failures[0]
+    return out
+
+
+def decode_batch_to_rgb_sharded(jpegs: Sequence, config: DecodeConfig = DEFAULT_CONFIG, mesh=None):
+    """Data-parallel fused decode of a uniform batch over `mesh` (default:
+    every visible CUDA device; it raises without a card): the list splits
+    into one contiguous chunk per device, and each device runs kernel A
+    and the color stage on its chunk (``decode_plan_to_rgb``). Refuses,
+    as the reference does (JpegUnsupportedError), a batch whose length
+    the mesh does not divide, more quantizer sets than kernel A takes,
+    and chunks whose table sets, quantizer sets, per-image quantizer
+    choice or MCUs per lane differ (the rows' word count may differ).
+    Returns (per mesh entry, uint8 [per, H, W, 3] (or [per, H, W] gray)
+    on that device; {image index over the whole batch: exception})."""
+    from ..parallel import mesh as mesh_lib
+
+    mesh = mesh_lib.data_mesh(mesh)
+    d, n = len(mesh), len(jpegs)
+    if n % d != 0:
+        raise JpegUnsupportedError(f"sharded decode needs len(jpegs) % {d} == 0, got {n}")
+    per = n // d
+    chunks = [jpegs[i * per : (i + 1) * per] for i in range(d)]
+    plans = [build_block_plan(c) for c in chunks]
+    p0 = plans[0]
+    if int(p0.qsets.shape[0]) > MAX_QSETS:
+        raise JpegUnsupportedError("sharded decode: too many quantizer sets")
+    for p in plans[1:]:
+        if (p.blk_tables != p0.blk_tables or not torch.equal(p.qsets, p0.qsets)
+                or p.img_qset != p0.img_qset or p.n_mcus != p0.n_mcus):
+            raise JpegUnsupportedError("sharded decode needs identical chunk structure")
+    launched = [decode_plan_to_rgb(p, c, config, dev) for p, c, dev in zip(plans, chunks, mesh)]
+    failures: Dict[int, Exception] = {}
+    for di, ((_rgb, _layout, err), p) in enumerate(zip(launched, plans)):
+        for img, exc in resolve_rgb_errors(err, p).items():
+            failures.setdefault(di * per + img, exc)
+    return [rgb for rgb, _layout, _err in launched], failures
 
 
 def decode_multiscan_to_device(jpeg, config: DecodeConfig = DEFAULT_CONFIG,

@@ -525,9 +525,9 @@ def dc_first(plan: ScanPlan, dcs: Sequence[torch.Tensor], err: torch.Tensor, *,
     blk = np.ascontiguousarray(plan.blk, dtype=np.int32)
     comp = np.ascontiguousarray(plan.comp, dtype=np.int32)
     ptrs = [c.data_ptr() for c in cols] + [None] * (4 - len(cols))
-    rc = build.get_lib().tj_prog_dc_first(
-        *_row_args(plan), len(cols), blk.ctypes.data, len(plan.blk),
-        comp.ctypes.data, plan.mcus_x, plan.al, *ptrs, err.data_ptr(), build.stream_of(dev))
+    rc = build.call(
+        dev, "tj_prog_dc_first", *_row_args(plan), len(cols), blk.ctypes.data, len(plan.blk),
+        comp.ctypes.data, plan.mcus_x, plan.al, *ptrs, err.data_ptr())
     build.raise_on_error(rc, "prog_dc_first")
     build.LAUNCHES["prog_dc_first"] += 1
 
@@ -540,9 +540,9 @@ def _launch_ac(name: str, plan: ScanPlan, state: torch.Tensor, err: torch.Tensor
     # boundary.
     build.check_aligned(name, [state, plan.bits, plan.luts])
     _h, _v, pwb, nb = plan.comp[0]
-    rc = getattr(build.get_lib(), "tj_" + name)(
-        *_row_args(plan), plan.mcus_x, pwb, nb, plan.ss, plan.se, plan.al,
-        state.data_ptr(), err.data_ptr(), build.stream_of(dev))
+    rc = build.call(
+        dev, "tj_" + name, *_row_args(plan), plan.mcus_x, pwb, nb, plan.ss, plan.se, plan.al,
+        state.data_ptr(), err.data_ptr())
     build.raise_on_error(rc, name)
     build.LAUNCHES[name] += 1
 

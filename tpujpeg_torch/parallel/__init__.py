@@ -1,13 +1,19 @@
-"""Batched and pipelined decode on one device.
+"""Batched, pipelined and sharded decode.
 
 - batch.py: many mixed JPEGs bucketed by frame geometry and color space,
   each bucket decoded in one launch chain, every image fault-isolated
-  (``decode_batch_on_device``, ``decode_batch``).
+  (``decode_batch_on_device``, ``decode_batch``; ``decode_batch`` splits
+  its transforms over a mesh of devices).
 - stream.py: chunks of a long sequence, host prep on worker threads
   overlapped with the device's decode of earlier chunks
   (``decode_stream``, ``decode_batch_pipelined``).
+- halo.py: one giant image's MCU rows sharded over a mesh, each shard
+  decoding one MCU row of its neighbours either side, and the
+  DC-predictor prefix fixup (``decode_sharded``, ``shard_windows``,
+  ``dc_prefix_fixup``).
+- mesh.py: meshes (tuples of ``torch.device``, one per shard, driven
+  from one process) and multi-process start-up.
+- manifest.py: the resumable batch job behind ``cli batch``.
 
-Port of ``tpujpeg/parallel/batch.py`` and ``stream.py``. The reference's
-mesh sharding (``halo.py``, ``mesh.py`` and ``decode_batch``'s
-``n_devices``) is not ported yet.
+Port of ``tpujpeg/parallel/``.
 """

@@ -29,9 +29,12 @@ them in order, popping each as it goes so that its RGB can be released.
   no counterpart.
 
 ``decode_batch`` runs host entropy per image, then ``transform_batch``
-per (bucket, quantizer set) on `device`, or the plain torch transform
-with ``transform_engine="torch"``. The reference's mesh sharding
-(``n_devices``) is not ported: this one takes a `device`.
+per (bucket, quantizer set), or the plain torch transform with
+``transform_engine="torch"``, split over a mesh of devices
+(``parallel/mesh.py``), the reference's ``n_devices``: each group's
+images split into contiguous pieces, one per device (the pieces of the
+reference's padded group, without its padding images). The default mesh
+is the one `device`.
 
 Images are numpy arrays when ``config.to_numpy`` (the default), else
 tensors on `device`.
@@ -54,6 +57,7 @@ from ..kernels import pipeline
 from ..kernels import wavefront as wf
 from ..kernels import wavefront_prog as wp
 from ..stats import DecodeStats
+from . import mesh as mesh_lib
 
 
 @dataclasses.dataclass
@@ -98,24 +102,33 @@ def _host_config(config: DecodeConfig) -> DecodeConfig:
     return dataclasses.replace(config, entropy_engine="auto")
 
 
+def _pieces(items: Sequence, mesh: Sequence[torch.device]) -> List[Tuple[torch.device, Sequence]]:
+    """`items` in contiguous pieces of ceil(len / devices), one per
+    device of `mesh` in order; devices past the last item get none."""
+    per = -(-len(items) // len(mesh))
+    return [(dev, items[i * per : (i + 1) * per]) for i, dev in enumerate(mesh) if i * per < len(items)]
+
+
 def _transform_by_qset(jpegs: Sequence, coeffs: Sequence[Sequence], config: DecodeConfig,
-                       device: torch.device, emit: Callable[[int, torch.Tensor], None]) -> None:
+                       mesh: Sequence[torch.device], emit: Callable[[int, torch.Tensor], None]) -> None:
     """``transform_batch`` over images of one bucket in sub-buckets of one
-    quantizer set each; coeffs[k] holds image k's per-component int32
-    [padded_blocks, 64] (tensors on `device` or host arrays). Calls
-    emit(k, rgb) for every image."""
+    quantizer set each, every sub-bucket split over `mesh` (``_pieces``);
+    coeffs[k] holds image k's per-component int32 [padded_blocks, 64]
+    (tensors on any device, or host arrays). Calls emit(k, rgb) for every
+    image, rgb on its piece's device."""
     by_q: Dict[Tuple, List[int]] = {}
     for k, j in enumerate(jpegs):
         by_q.setdefault(_qkey(j), []).append(k)
     frame = jpegs[0].frame
     for ks in by_q.values():
         j0 = jpegs[ks[0]]
-        stack = [torch.stack([torch.as_tensor(coeffs[k][ci]).to(device) for k in ks])
-                 for ci in range(frame.n_components)]
         qtabs = [j0.qtables[c.tq].astype(np.int32) for c in frame.components]
-        out = pipeline.transform_batch(frame, stack, qtabs, config, color=bitstream.color_space(j0))
-        for slot, k in enumerate(ks):
-            emit(k, out[slot])
+        for device, piece in _pieces(ks, mesh):
+            stack = [torch.stack([torch.as_tensor(coeffs[k][ci]).to(device) for k in piece])
+                     for ci in range(frame.n_components)]
+            out = pipeline.transform_batch(frame, stack, qtabs, config, color=bitstream.color_space(j0))
+            for slot, k in enumerate(piece):
+                emit(k, out[slot])
 
 
 def decode_batch_on_device(datas: Sequence[bytes], config: DecodeConfig = DEFAULT_CONFIG,
@@ -293,7 +306,7 @@ def decode_batch_on_device(datas: Sequence[bytes], config: DecodeConfig = DEFAUL
             errors[members[li]] = exc
         ok = [li for li in range(len(members)) if li not in failures]
         if ok:
-            _transform_by_qset([sub[li] for li in ok], [coeffs[li] for li in ok], config, device,
+            _transform_by_qset([sub[li] for li in ok], [coeffs[li] for li in ok], config, (device,),
                                lambda k, img: record(members[ok[k]], img, "wavefront-coeff"))
     for i in solo:
         coeff_one(i)
@@ -302,24 +315,29 @@ def decode_batch_on_device(datas: Sequence[bytes], config: DecodeConfig = DEFAUL
     for entry in decoded:
         by_bucket.setdefault(_bucket_key(jpegs[entry[0]]), []).append(entry)
     for entries in by_bucket.values():
-        _transform_by_qset([jpegs[i] for i, _c, _e in entries], [c for _i, c, _e in entries], config, device,
+        _transform_by_qset([jpegs[i] for i, _c, _e in entries], [c for _i, c, _e in entries], config, (device,),
                            lambda k, img, entries=entries: record(entries[k][0], img, entries[k][2]))
 
     return BatchResult(images=images, errors=errors, stats=stats)
 
 
 def decode_batch(datas: Sequence[bytes], config: DecodeConfig = DEFAULT_CONFIG,
-                 device="cuda") -> BatchResult:
+                 device=None, mesh=None) -> BatchResult:
     """Decode a batch of JPEG byte strings: parse and entropy decode on the
-    host per image under try/except (``config.entropy_engine``), then one
-    transform per (bucket, quantizer set) on `device`: kernel 6 and the
-    color stage, or with ``transform_engine="torch"`` the plain torch
-    transform per image."""
-    device = torch.device(device)
+    host per image under try/except (``config.entropy_engine``; the
+    wavefront engine runs on the mesh's first device), then one transform
+    per (bucket, quantizer set), split over `mesh` (a sequence of
+    devices; default: `device` alone, "cuda" if neither is given; both
+    raise ValueError): kernel 6 and the color stage, or with
+    ``transform_engine="torch"`` the plain torch transform per image.
+    Images decoded as tensors lie on their piece's device."""
+    if device is not None and mesh is not None:
+        raise ValueError("decode_batch takes a device or a mesh, not both")
+    mesh = mesh_lib.as_mesh(mesh if mesh is not None else (device or "cuda",))
     if config.transform_engine not in ("auto", "cuda", "torch"):
         raise ValueError(f"unknown transform engine {config.transform_engine!r}")
     plain = config.transform_engine == "torch"
-    transform_engine = "cuda" if device.type == "cuda" and not plain else "torch"
+    transform_engine = "cuda" if mesh[0].type == "cuda" and not plain else "torch"
     n = len(datas)
     images: List[Optional[object]] = [None] * n
     errors: Dict[int, Exception] = {}
@@ -330,7 +348,7 @@ def decode_batch(datas: Sequence[bytes], config: DecodeConfig = DEFAULT_CONFIG,
         st = DecodeStats()
         try:
             jpeg = bitstream.parse(data)
-            coeffs = _entropy_decode(jpeg, config, st, device)
+            coeffs = _entropy_decode(jpeg, config, st, mesh[0])
         except RuntimeError:
             raise  # not the member's fault
         except Exception as e:  # a batch boundary: no member may kill it
@@ -349,13 +367,14 @@ def decode_batch(datas: Sequence[bytes], config: DecodeConfig = DEFAULT_CONFIG,
 
     for entries in buckets.values():
         if plain:
-            for i, jpeg, coeffs in entries:
-                frame = jpeg.frame
-                qtabs = [torch.from_numpy(jpeg.qtables[c.tq].astype(np.int32)).to(device)
-                         for c in frame.components]
-                emit(i, T.transform_frame(frame, [torch.as_tensor(c).to(device) for c in coeffs], qtabs,
-                                          config.fancy_upsampling, bitstream.color_space(jpeg)))
+            for dev, piece in _pieces(entries, mesh):
+                for i, jpeg, coeffs in piece:
+                    frame = jpeg.frame
+                    qtabs = [torch.from_numpy(jpeg.qtables[c.tq].astype(np.int32)).to(dev)
+                             for c in frame.components]
+                    emit(i, T.transform_frame(frame, [torch.as_tensor(c).to(dev) for c in coeffs], qtabs,
+                                              config.fancy_upsampling, bitstream.color_space(jpeg)))
             continue
-        _transform_by_qset([e[1] for e in entries], [e[2] for e in entries], config, device,
+        _transform_by_qset([e[1] for e in entries], [e[2] for e in entries], config, mesh,
                            lambda k, img, entries=entries: emit(entries[k][0], img))
     return BatchResult(images=images, errors=errors, stats=stats)
