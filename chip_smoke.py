@@ -133,8 +133,10 @@ of tpujpeg/. Phases, one JSON line each:
    restart-segmented image's and decode_norst_to_rgb's (the fused
    single-device decode of the same file), and decode_norst_sharded's
    coefficients equal decode_norst_to_device's and the restart-segmented
-   image's. Prints the encode and host split times, walls and peak
-   memory of the four entries.
+   image's; one more decode_norst_sharded call records each shard's
+   kernel-2 launch, which equals its plain version on its own inputs.
+   Prints the encode and host split times, walls and peak memory of the
+   four entries.
 14. The fixtures through decode_sharded on 4 shards: norst_2048,
    422_2048, 444_2048 and gray hash to PIL's; kernel 2 runs once per
    shard for the marker-free one (whose decode_norst_sharded
@@ -1499,6 +1501,31 @@ def main() -> int:
               for a, b, h in zip(got_c, want_c, gcoef_host)),
           "norst giant: decode_norst_sharded != decode_norst_to_device or the restart image's coefficients")
     del got_c, want_c, gcoef_host
+    # Each shard's kernel-2 launch of decode_norst_sharded against its
+    # plain version on its own inputs (lanes from zero DC predictors into a
+    # window of the rows they touch); the DC fixup then changes the
+    # outputs in place, so they are copied at the launch (not counted).
+    rec = collections.defaultdict(list)
+
+    def copied(fn):
+        def call(*args, **kw):
+            coeffs, err = fn(*args, **kw)
+            rec["wavefront_coeff"].append((args, kw, [c.clone() for c in coeffs], err.clone()))
+            return coeffs, err
+        return call
+
+    with mock.patch.object(wf, "decode_lanes_to_coeffs", copied(wf.decode_lanes_to_coeffs)):
+        wf.decode_norst_sharded(nj, config, mesh=shard_mesh)
+    check(len(rec["wavefront_coeff"]) == SHARDS, f"norst giant: recorded {len(rec['wavefront_coeff'])} launches")
+    nsh_err = 0
+    for args, kw, coef_k, err_k in rec["wavefront_coeff"]:
+        coef_p, err_p = wf.decode_lanes_to_coeffs(*args, **{**kw, "plain": True})
+        e = max(max_abs(torch, a, b) for a, b in zip(coef_k, coef_p))
+        check(e == 0 and torch.equal(err_k, err_p) and not err_k.any(),
+              f"norst giant: kernel 2 != plain on a shard (max_abs_err {e})")
+        nsh_err = max(nsh_err, e)
+    results["wavefront_coeff"]["max_abs_err"] = max(results["wavefront_coeff"]["max_abs_err"], nsh_err)
+    del rec, coef_k, err_k, coef_p, err_p
     emit("sharded", image=[gframe.height, gframe.width], entry="decode_sharded (marker-free)",
          jpeg_bytes=len(ngiant), shards=SHARDS, encode_s=t_encode, host_split_s=t_nplan,
          lanes=nplan.n_lanes, words=nplan.n_words, mcus_per_lane=nplan.n_mcus, calls=4, wall_s=nwalls,
@@ -1508,7 +1535,8 @@ def main() -> int:
                     peak_bytes=nfpeak),
          coeffs=dict(sharded_wall_s=ncwalls, sharded_peak_bytes=ncpeak, single_wall_s=nswalls,
                      single_peak_bytes=nspeak),
-         equal_to_restart_image=True, equal_to_fused=True, coeffs_equal=True)
+         equal_to_restart_image=True, equal_to_fused=True, coeffs_equal=True,
+         kernel_2_max_abs_err_vs_plain=nsh_err)
     del gout, gplan, gjpeg, giant, ngiant, nj, nplan
 
     # 14. The fixtures through decode_sharded on SHARDS shards, each hashing

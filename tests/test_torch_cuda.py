@@ -124,16 +124,16 @@ def test_kernel_a_matches_plain_on_corrupt_streams(cuda):
     assert err.any()
 
 
-def _coeff_kernel_and_plain(jpegs, dev, plan=None):
+def _coeff_kernel_and_plain(jpegs, dev, plan=None, layout=None):
     """Kernel 2 against its plain version: error bits for every lane and
     coefficients for every image, a failing lane's blocks included."""
     plan = plan if plan is not None else wf.build_block_plan(jpegs)
     geoms = [wf.ImageGeom.of(j) for j in jpegs]
     before = build.LAUNCHES["wavefront_coeff"]
-    coeffs, err = wf.decode_lanes_to_coeffs(plan, geoms, dev)
+    coeffs, err = wf.decode_lanes_to_coeffs(plan, geoms, dev, layout=layout)
     torch.cuda.synchronize()
     assert build.LAUNCHES["wavefront_coeff"] == before + 1
-    want, want_err = wf.decode_lanes_to_coeffs(plan, geoms, dev, plain=True)
+    want, want_err = wf.decode_lanes_to_coeffs(plan, geoms, dev, plain=True, layout=layout)
     assert build.LAUNCHES["wavefront_coeff"] == before + 1
     assert torch.equal(err, want_err)
     for a, b in zip(coeffs, want):
@@ -141,11 +141,86 @@ def _coeff_kernel_and_plain(jpegs, dev, plan=None):
     return err
 
 
-@pytest.mark.parametrize("name", FUSED + [RANDOM_ROWS])
-def test_kernel_2_matches_plain_on_fixtures(cuda, name):
+# Kernel 2's warp store on ragged warps, beside the fixtures: lanes of 0
+# to 9 MCUs (random) cut across a fixture's MCUs ("lanes_0_9-<fixture>-
+# <rows>", on the fixture's rows, whose lanes run past their segment and
+# fail at various points, or random rows; 1, 3, 4 and 6 blocks per MCU),
+# the first 33 and 65 lanes of a plan (a warp of one live lane), corpus
+# streams whose warps straddle images (3 x 77x61 4:2:0, one MCU a lane),
+# four planes (CMYK, 7 blocks per MCU), 4:2:2 and gray, and each norst
+# fixture's lanes in 3 windows as decode_norst_sharded cuts them (plane
+# heights cut, MCU rows rebased).
+UNEQUAL = [f"lanes_0_9-{f}-{rows}" for f in ("gray", "444", "422", "420_2048") for rows in ("fixture", "random")]
+CORPUS = {  # name -> (tests/corpus.py make_jpeg arguments, copies)
+    "straddle_77x61": (dict(w=77, h=61, restart_blocks=1), 3),
+    "cmyk_64x48": (dict(w=64, h=48, seed=6, mode="CMYK"), 2),
+    "422_77x61": (dict(w=77, h=61, subsampling=1, restart_blocks=2), 2),
+    "gray_96x80": (dict(w=96, h=80, seed=5, mode="L", restart_blocks=3), 2),
+}
+COEFF_CASES = (UNEQUAL + ["first_33-444", "first_65-444"] + sorted(CORPUS)
+               + [f"window_{i}-{n}" for n in NORST for i in range(3)])
+
+
+def _lanes(plan, rows, meta):
+    """`plan` with lanes (image, first MCU, MCUs) `meta` reading the rows
+    `rows` of `plan`."""
+    meta = torch.tensor(meta, dtype=torch.int32)
+    return dataclasses.replace(
+        plan, bits=plan.bits[rows].contiguous(), seg_bits=plan.seg_bits[rows].contiguous(),
+        lane_m=meta[:, 2].contiguous(), lane_qset=plan.lane_qset[rows].contiguous(), lane_meta=meta,
+        n_mcus=max(int(meta[:, 2].max()), 1))
+
+
+def _coeff_case(name):
+    """(jpegs, plan, layout or None) of a kernel-2 case: a fixture name,
+    RANDOM_ROWS or one of COEFF_CASES."""
+    kind, _, rest = name.partition("-")
+    if kind == "lanes_0_9":
+        fixture, rows_kind = rest.rsplit("-", 1)
+        jpegs, base = _fixture_plan(fixture)
+        total = int(base.lane_meta[base.lane_meta[:, 0] == 0, 2].sum())
+        rng = np.random.default_rng(11)
+        meta = []
+        for img in range(len(jpegs)):
+            first = 0
+            while first < total:
+                m = min(int(rng.integers(0, 10)), total - first)
+                meta.append((img, first, m))
+                first += m
+        plan = _lanes(base, torch.from_numpy(rng.integers(0, base.n_lanes, size=len(meta))), meta)
+        if rows_kind == "random":
+            _random_rows(plan, torch.Generator().manual_seed(5))
+        return jpegs, plan, None
+    if kind in ("first_33", "first_65"):
+        jpegs, base = _fixture_plan(rest)
+        n = int(kind[6:])
+        return jpegs, _lanes(base, torch.arange(n), base.lane_meta[:n].tolist()), None
+    if name in CORPUS:
+        pytest.importorskip("PIL", reason="tests/corpus.py encodes with PIL")
+        from corpus import make_jpeg
+
+        kw, n = CORPUS[name]
+        jpegs = [tpujpeg_torch.bitstream.parse(make_jpeg(**kw)) for _ in range(n)]
+        return jpegs, wf.build_block_plan(jpegs), None
+    if kind.startswith("window_"):
+        jpegs, plan = _norst_plan(rest)
+        per = -(-plan.n_lanes // 3)
+        i = int(kind[7:])
+        sub, win, _r0 = wf._norst_window(plan, i * per, min(plan.n_lanes, (i + 1) * per),
+                                         wf.PlaneLayout.of(wf.ImageGeom.of(jpegs[0])))
+        return jpegs, sub, win
     jpegs, plan = _fixture_plan(name)
-    err = _coeff_kernel_and_plain(jpegs, cuda, plan)
-    assert bool(err.any()) == (name == RANDOM_ROWS)
+    return jpegs, plan, None
+
+
+@pytest.mark.parametrize("name", FUSED + [RANDOM_ROWS] + COEFF_CASES)
+def test_kernel_2_matches_plain_on_fixtures(cuda, name):
+    jpegs, plan, layout = _coeff_case(name)
+    err = _coeff_kernel_and_plain(jpegs, cuda, plan, layout)
+    if name in UNEQUAL:
+        assert bool(err.any()) and not bool(err.all())
+    else:
+        assert bool(err.any()) == (name == RANDOM_ROWS)
 
 
 def test_kernel_a_and_2_launch_without_syncing_the_stream(cuda):
@@ -167,8 +242,9 @@ def test_kernel_a_and_2_launch_without_syncing_the_stream(cuda):
 
 
 def test_kernel_2_matches_plain_on_corrupt_streams(cuda):
+    """Failing lanes beside good ones in the same warps."""
     err = _coeff_kernel_and_plain(_corrupt_batch(), cuda)
-    assert err.any()
+    assert err.any() and not err.all()
 
 
 RANDOM_START = "420_odd-random_start"

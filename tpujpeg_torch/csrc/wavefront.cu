@@ -12,7 +12,9 @@
 // here each thread walks its own lane with data-dependent control flow,
 // reads its row of words from device memory, and takes the tables and
 // quantizer sets as runtime data staged in shared memory. The two emits
-// share one decode loop (decode_lane), templated on the epilogue.
+// share the block decode (decode_block), templated on where it stages the
+// AC values: kernel A runs it lane by lane (decode_lane), kernel 2 a warp
+// at a time in step (decode_warp_coeff).
 //
 // What bounds them on the H100: each lane's serial chain of symbols
 // (about 477 per lane on the main path), the epilogue's integer work
@@ -21,11 +23,28 @@
 // go to local memory: with about a thousand threads per SM, a 256-byte
 // block and a 256-byte IDCT workspace per thread outgrow L1, and their
 // traffic goes to L2. So:
-//  * a block's AC values are staged in shared memory, coefficient-major
-//    int16 [63][threads] (thread t's value k at (k - 1) * threads + t: no
-//    bank conflicts), with a 64-bit mask of the positions written in place
-//    of 64 zeroing stores; the epilogues read position k only through a
+//  * a block's AC values are staged in shared memory as int16. Kernel
+//    A's stage is coefficient-major, int16 [63][threads] (thread t's
+//    value k at (k - 1) * threads + t: no bank conflicts), with a 64-bit
+//    mask of the positions written in place of 64 zeroing stores; its
+//    epilogue reads position k of its own column only through a
 //    compile-time k, as mask bit ? staged value : 0;
+//  * kernel 2's stage is block-major, int16 [threads][64], thread t's
+//    value k at t * 64 + (k ^ 2 (t mod 32)): the swizzle puts the 32
+//    lanes of a warp on 32 banks for any one k, and leaves each 8-byte
+//    chunk of four positions whole (its two words swapped in odd rows).
+//    The warp decodes in step, one block position at a time up to its
+//    longest lane, and then writes its lanes' finished blocks itself:
+//    lanes 0-15 the block of lane 2i and lanes 16-31 that of lane 2i + 1,
+//    16 bytes (four positions) a lane, the place and DC from the owner by
+//    shuffles and the values from the owner's stage row, which the reader
+//    clears behind it (so no mask: a row holds zeros wherever its block
+//    has none). Each store instruction then writes four whole 128-byte
+//    lines; a lane that wrote its own block from registers touched 32
+//    lines per instruction, half a sector each. (A dense int32 slot per
+//    lane, copied out with one 256-byte cp.async.bulk, needs no warp
+//    convergence but was slower on the main plan: its 32 KB of shared
+//    memory per CTA leaves 5 CTAs per SM, too few for the decode chain);
 //  * kernel A's epilogue dequantizes and runs both islow passes unrolled
 //    in registers (tj_idct_islow_store, kernel 6's too);
 //  * the window comes from a two-word register cache (TjWords) that loads
@@ -94,9 +113,14 @@ struct LaneArgs {
   int* err_out;
 };
 
-// Shared memory: stage int16 [63][threads], lut u16 [n_lut][2][512],
-// tab int [n_lut][68], q int [nq][B][64], blk int [B][4], comp int
-// [n_planes][4], lut_of int [B], hv u8 [n_lut][2][256].
+// Stage sizes in int16: kernel A's [63][threads], kernel 2's [threads][64].
+#define TJ_STAGE_A (63 * TJ_WF_THREADS)
+#define TJ_STAGE_2 (64 * TJ_WF_THREADS)
+#define TJ_FULL_WARP 0xffffffffu
+
+// Shared memory: stage int16 [kStage], lut u16 [n_lut][2][512], tab int
+// [n_lut][68], q int [nq][B][64], blk int [B][4], comp int [n_planes][4],
+// lut_of int [B], hv u8 [n_lut][2][256].
 struct Smem {
   int16_t* stage;
   const uint16_t* lut;
@@ -108,18 +132,19 @@ struct Smem {
   const uint8_t* hv;
 };
 
-static size_t smem_bytes(int B, int nq, int n_planes, int n_lut) {
-  return sizeof(int16_t) * 63 * TJ_WF_THREADS + sizeof(uint16_t) * n_lut * 1024 +
+static size_t smem_bytes(int stage, int B, int nq, int n_planes, int n_lut) {
+  return sizeof(int16_t) * stage + sizeof(uint16_t) * n_lut * 1024 +
          sizeof(int) * (n_lut * 68 + nq * B * 64 + B * 4 + n_planes * 4 + B) + n_lut * 512;
 }
 
 // Stage the tables, quantizers and layout, then build the lookahead
 // tables from the staged ones. Every index into the argument arrays is a
 // compile-time constant.
+template <int kStage>
 __device__ __forceinline__ Smem stage_smem(const LaneArgs& a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   int16_t* s_stage = (int16_t*)smem_raw;
-  uint16_t* s_lut = (uint16_t*)(s_stage + 63 * TJ_WF_THREADS);
+  uint16_t* s_lut = (uint16_t*)(s_stage + kStage);
   int* s_tab = (int*)(s_lut + a.n_lut * 1024);
   int* s_q = s_tab + a.n_lut * 68;
   int* s_blk = s_q + a.nq * a.B * 64;
@@ -163,86 +188,88 @@ __device__ __forceinline__ Smem stage_smem(const LaneArgs& a) {
   return Smem{s_stage, s_lut, s_tab, s_q, s_blk, s_comp, s_lut_of, s_hv};
 }
 
-// Zigzag position k (1..63, a compile-time constant) of the staged block.
+// Where the block decode stages AC value k (1..63). Kernel A: its
+// thread's column of the coefficient-major stage, and a mask of the
+// positions written (the column is never cleared).
+struct StageColumn {
+  int16_t* st;  // sm.stage + threadIdx.x
+  u64 nzm;
+  __device__ __forceinline__ void put(int k, int val) {
+    st[(k - 1) * TJ_WF_THREADS] = (int16_t)val;
+    nzm |= 1ull << k;
+  }
+};
+
+// Kernel 2: its thread's row of the block-major stage, swizzled. The row
+// is all zeros when a block's decode starts (the warp store clears what
+// it reads), so no mask is kept.
+struct StageRow {
+  int16_t* row;  // sm.stage + threadIdx.x * 64
+  int swz;       // 2 * (threadIdx.x % 32)
+  __device__ __forceinline__ void put(int k, int val) { row[k ^ swz] = (int16_t)val; }
+};
+
+// Zigzag position k (1..63, a compile-time constant) of kernel A's staged
+// block.
 __device__ __forceinline__ int staged(const int16_t* st, u64 nzm, int k) {
   return (nzm >> k) & 1ull ? (int)st[(k - 1) * TJ_WF_THREADS] : 0;
 }
 
-// Decode every block of one lane; for each, Epi::store(sm, img, b, my,
-// mx, st, nzm, dc) gets the finished block: AC values staged at st (this
-// thread's column of the staging) where nzm has their bit, DC absolute.
-template <class Epi>
-__device__ __forceinline__ void decode_lane(const LaneArgs& a, const Smem& sm, const Epi& epi,
-                                            int lane) {
-  int cur = a.bit0 ? a.bit0[lane] : 0;
-  TjWords words(a.bits + (size_t)lane * a.W, a.W, a.P, cur >> 5);
-  const int img = a.lane_meta[lane * 3 + 0];
-  const int first = a.lane_meta[lane * 3 + 1];
-  const int lm = a.lane_m[lane];
-  int16_t* st = sm.stage + threadIdx.x;
+// The staged tables of block position b and its frame component.
+struct BlockTables {
+  const int* tb;         // dc maxcode | valoffset, then ac
+  const uint8_t* hv;     // dc, then ac symbols
+  const uint16_t* lut;   // dc, then ac lookahead
+  int ci;
+};
 
-  int err = 0;
-  u32 pred0 = 0u, pred1 = 0u, pred2 = 0u, pred3 = 0u;  // per frame component
-  if (a.dc0) {
-    const int4 d = *(const int4*)(a.dc0 + (size_t)lane * 4);
-    pred0 = (u32)d.x;
-    pred1 = (u32)d.y;
-    pred2 = (u32)d.z;
-    pred3 = (u32)d.w;
-  }
+__device__ __forceinline__ BlockTables block_tables(const Smem& sm, int b) {
+  const int u = sm.lut_of[b];
+  return BlockTables{sm.tab + u * 68, sm.hv + u * 512, sm.lut + u * 1024, sm.blk[b * 4 + 0]};
+}
 
-  for (int m = 0; m < lm; ++m) {
-    const int g = first + m;
-    const int my = g / a.mcus_x;
-    const int mx = g - my * a.mcus_x;
-    for (int b = 0; b < a.B; ++b) {
-      const int u = sm.lut_of[b];
-      const int* tb = sm.tab + u * 68;
-      const uint8_t* hv = sm.hv + u * 512;
-      const uint16_t* lut = sm.lut + u * 1024;
-      const int ci = sm.blk[b * 4 + 0];
-      u64 nzm = 0ull;
-      u32 dc = 0u;
-      if (err == 0) {
-        // DC symbol, EXTEND, predictor.
-        u32 win = words.window(cur);
-        int t, dlen;
-        tj_decode_lookahead(win, lut, tb, tb + 17, hv, t, dlen);
-        const bool bad = dlen > 16 || t > 15;
-        if (t > 15) t = 0;
-        u32 p = ci == 0 ? pred0 : (ci == 1 ? pred1 : (ci == 2 ? pred2 : pred3));
-        p += (u32)tj_receive_extend(win, dlen, t);
-        pred0 = ci == 0 ? p : pred0;
-        pred1 = ci == 1 ? p : pred1;
-        pred2 = ci == 2 ? p : pred2;
-        pred3 = ci >= 3 ? p : pred3;
-        cur += dlen + t;
-        if (bad) err = TJ_ERR_BADCODE;
-        // AC symbols until EOB, k = 64 or an error.
-        int k = 1;
-        while (k < 64 && err == 0) {
-          win = words.window(cur);
-          int rs, alen;
-          tj_decode_lookahead(win, lut + 512, tb + 34, tb + 51, hv + 256, rs, alen);
-          const int run = rs >> 4, size = rs & 15;
-          const int val = tj_receive_extend(win, alen, size);
-          const int nk = k + (size > 0 ? run : 0);
-          if (size > 0 && nk <= 63) {
-            st[(nk - 1) * TJ_WF_THREADS] = (int16_t)val;
-            nzm |= 1ull << nk;
-          }
-          cur += alen + size;
-          if (alen > 16) err = TJ_ERR_BADCODE;
-          if (size > 0 && nk > 63) err = TJ_ERR_RUN;
-          k = size > 0 ? nk + 1 : (run != 15 ? 64 : k + 16);
-        }
-        dc = p;
-      }
-      epi.store(sm, img, b, my, mx, st, nzm, dc);
-    }
+// Decode one block at the lane's cursor: the DC symbol, EXTEND and the
+// predictor, then AC symbols until EOB, k = 64 or an error, each nonzero
+// AC value k into stage.put(k, value); returns the absolute DC. Sets err
+// on BADCODE or RUN; callers run it only while err is 0.
+template <class Stage>
+__device__ __forceinline__ u32 decode_block(const BlockTables& bt, Stage& stage, TjWords& words,
+                                            int& cur, int& err, u32& pred0, u32& pred1,
+                                            u32& pred2, u32& pred3) {
+  const int* tb = bt.tb;
+  const uint8_t* hv = bt.hv;
+  const uint16_t* lut = bt.lut;
+  const int ci = bt.ci;
+  // DC symbol, EXTEND, predictor.
+  u32 win = words.window(cur);
+  int t, dlen;
+  tj_decode_lookahead(win, lut, tb, tb + 17, hv, t, dlen);
+  const bool bad = dlen > 16 || t > 15;
+  if (t > 15) t = 0;
+  u32 p = ci == 0 ? pred0 : (ci == 1 ? pred1 : (ci == 2 ? pred2 : pred3));
+  p += (u32)tj_receive_extend(win, dlen, t);
+  pred0 = ci == 0 ? p : pred0;
+  pred1 = ci == 1 ? p : pred1;
+  pred2 = ci == 2 ? p : pred2;
+  pred3 = ci >= 3 ? p : pred3;
+  cur += dlen + t;
+  if (bad) err = TJ_ERR_BADCODE;
+  // AC symbols until EOB, k = 64 or an error.
+  int k = 1;
+  while (k < 64 && err == 0) {
+    win = words.window(cur);
+    int rs, alen;
+    tj_decode_lookahead(win, lut + 512, tb + 34, tb + 51, hv + 256, rs, alen);
+    const int run = rs >> 4, size = rs & 15;
+    const int val = tj_receive_extend(win, alen, size);
+    const int nk = k + (size > 0 ? run : 0);
+    if (size > 0 && nk <= 63) stage.put(nk, val);
+    cur += alen + size;
+    if (alen > 16) err = TJ_ERR_BADCODE;
+    if (size > 0 && nk > 63) err = TJ_ERR_RUN;
+    k = size > 0 ? nk + 1 : (run != 15 ? 64 : k + 16);
   }
-  const bool trunc = cur > a.seg_bits[lane] + 7 && lm > 0;
-  a.err_out[lane] = err | (trunc ? TJ_ERR_TRUNC : 0);
+  return p;
 }
 
 // The block's output (plane or coefficient array), block row and column.
@@ -278,32 +305,129 @@ struct PixelsEpi {
   }
 };
 
-// Kernel 2's epilogue: the zigzag block, DC absolute, into
-// coeff[sp][img, brow * padded_wb + bcol, :] as 16 int4 words.
-struct CoeffEpi {
-  Outputs coeff;
-  __device__ __forceinline__ void store(const Smem& sm, int img, int b, int my, int mx,
-                                        const int16_t* st, u64 nzm, u32 dc) const {
-    int sp, brow, bcol;
-    int* base = (int*)block_place(sm, coeff, b, my, mx, sp, brow, bcol);
-    const int phb = sm.comp[sp * 4 + 2] >> 3, pwb = sm.comp[sp * 4 + 3] >> 3;
-    int4* dst = (int4*)(base + (((size_t)img * phb + brow) * pwb + bcol) * 64);
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      int c[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int k = 4 * i + j;
-        c[j] = k == 0 ? (int)dc : staged(st, nzm, k);
-      }
-      dst[i] = make_int4(c[0], c[1], c[2], c[3]);
+// A lane's DC predictors by frame component at its start: dc0's, or zeros
+// (restart lanes).
+__device__ __forceinline__ void start_preds(const LaneArgs& a, int lane, u32& pred0, u32& pred1,
+                                            u32& pred2, u32& pred3) {
+  pred0 = pred1 = pred2 = pred3 = 0u;
+  if (a.dc0) {
+    const int4 d = *(const int4*)(a.dc0 + (size_t)lane * 4);
+    pred0 = (u32)d.x;
+    pred1 = (u32)d.y;
+    pred2 = (u32)d.z;
+    pred3 = (u32)d.w;
+  }
+}
+
+// Kernel A: decode every block of one lane and run the epilogue on each.
+// A lane with an error stops advancing; its remaining blocks have all-zero
+// coefficients.
+__device__ __forceinline__ void decode_lane(const LaneArgs& a, const Smem& sm, const PixelsEpi& epi,
+                                            int lane) {
+  int cur = a.bit0 ? a.bit0[lane] : 0;
+  TjWords words(a.bits + (size_t)lane * a.W, a.W, a.P, cur >> 5);
+  const int img = a.lane_meta[lane * 3 + 0];
+  const int first = a.lane_meta[lane * 3 + 1];
+  const int lm = a.lane_m[lane];
+  int16_t* st = sm.stage + threadIdx.x;
+
+  int err = 0;
+  u32 pred0, pred1, pred2, pred3;  // per frame component
+  start_preds(a, lane, pred0, pred1, pred2, pred3);
+
+  for (int m = 0; m < lm; ++m) {
+    const int g = first + m;
+    const int my = g / a.mcus_x;
+    const int mx = g - my * a.mcus_x;
+    for (int b = 0; b < a.B; ++b) {
+      const BlockTables bt = block_tables(sm, b);
+      StageColumn stage{st, 0ull};
+      u32 dc = 0u;
+      if (err == 0) dc = decode_block(bt, stage, words, cur, err, pred0, pred1, pred2, pred3);
+      epi.store(sm, img, b, my, mx, st, stage.nzm, dc);
     }
   }
-};
+  const bool trunc = cur > a.seg_bits[lane] + 7 && lm > 0;
+  a.err_out[lane] = err | (trunc ? TJ_ERR_TRUNC : 0);
+}
+
+// Kernel 2: the warp decodes in step and writes its lanes' blocks itself.
+// Every lane of the warp runs the block loop to the warp's longest lane,
+// so the shuffles and __syncwarp below see all 32: a lane past its own
+// MCUs, or past L, decodes nothing and has no block (its bit of `has` is
+// 0); a lane with an error stops advancing, and its remaining blocks are
+// all-zero (DC 0, nothing staged) and are written. Then, per block
+// position, the warp writes its blocks in pairs: for pair i, lanes 0-15
+// write the block of lane 2i and lanes 16-31 that of lane 2i + 1, lane j
+// of a half positions 4j .. 4j+3 as one int4, the DC at position 0. The
+// owner's block index and DC come by shuffle and the values from chunk
+// j ^ i of the owner's stage row (its words swapped in odd rows); the
+// reader clears the chunk, so every row is all zeros again for the next
+// block. A block index fits 32 bits: the coefficient arrays of one
+// launch hold far fewer than 2^32 blocks.
+__device__ __forceinline__ void decode_warp_coeff(const LaneArgs& a, const Smem& sm,
+                                                  const Outputs& out) {
+  const int tid = threadIdx.x;
+  const int wl = tid & 31;  // lane of the warp
+  const int lane = blockIdx.x * blockDim.x + tid;
+  const bool live = lane < a.L;
+  const int ln = live ? lane : a.L - 1;  // a lane past L reads lane L - 1's inputs
+  const int lm = live ? a.lane_m[ln] : 0;
+  const int wm = __reduce_max_sync(TJ_FULL_WARP, (unsigned)lm);
+  int cur = a.bit0 ? a.bit0[ln] : 0;
+  TjWords words(a.bits + (size_t)ln * a.W, a.W, a.P, cur >> 5);
+  const int img = a.lane_meta[ln * 3 + 0];
+  const int first = a.lane_meta[ln * 3 + 1];
+  StageRow stage{sm.stage + tid * 64, wl << 1};
+#pragma unroll
+  for (int i = 0; i < 8; ++i) ((int4*)stage.row)[i] = make_int4(0, 0, 0, 0);
+  int16_t* wrows = sm.stage + (tid - wl) * 64;  // the warp's 32 rows
+  const int half = wl >> 4, j = wl & 15;
+
+  int err = 0;
+  u32 pred0, pred1, pred2, pred3;  // per frame component
+  start_preds(a, ln, pred0, pred1, pred2, pred3);
+
+  for (int m = 0; m < wm; ++m) {
+    const bool mine = m < lm;
+    const u32 has = __ballot_sync(TJ_FULL_WARP, mine);
+    const int g = first + m;
+    const int my = g / a.mcus_x;
+    const int mx = g - my * a.mcus_x;
+    for (int b = 0; b < a.B; ++b) {
+      u32 dc = 0u;
+      if (mine && err == 0)
+        dc = decode_block(block_tables(sm, b), stage, words, cur, err, pred0, pred1, pred2, pred3);
+      int sp, brow, bcol;
+      int4* base = (int4*)block_place(sm, out, b, my, mx, sp, brow, bcol);
+      const int phb = sm.comp[sp * 4 + 2] >> 3, pwb = sm.comp[sp * 4 + 3] >> 3;
+      const u32 bidx = ((u32)img * (u32)phb + (u32)brow) * (u32)pwb + (u32)bcol;
+      __syncwarp();  // every stage row of this block position is written
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int src = 2 * i + half;
+        const u32 o_bidx = __shfl_sync(TJ_FULL_WARP, bidx, src);
+        const u32 o_dc = __shfl_sync(TJ_FULL_WARP, dc, src);
+        uint2* chunk = (uint2*)(wrows + src * 64 + 4 * (j ^ i));
+        const uint2 w = *chunk;
+        *chunk = make_uint2(0u, 0u);
+        const u32 p01 = half ? w.y : w.x, p23 = half ? w.x : w.y;
+        const int4 c = make_int4(j == 0 ? (int)o_dc : (int)(p01 << 16) >> 16, (int)p01 >> 16,
+                                 (int)(p23 << 16) >> 16, (int)p23 >> 16);
+        if ((has >> src) & 1u) base[(size_t)o_bidx * 16 + j] = c;
+      }
+      __syncwarp();  // every stage row is read and cleared before the next decode
+    }
+  }
+  if (live) {
+    const bool trunc = cur > a.seg_bits[lane] + 7 && lm > 0;
+    a.err_out[lane] = err | (trunc ? TJ_ERR_TRUNC : 0);
+  }
+}
 
 __global__ void __launch_bounds__(TJ_WF_THREADS) wavefront_pixels_kernel(LaneArgs a,
                                                                          Outputs planes) {
-  const Smem sm = stage_smem(a);
+  const Smem sm = stage_smem<TJ_STAGE_A>(a);
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= a.L) return;
   PixelsEpi epi{planes, a.B, a.lane_q[lane]};
@@ -312,11 +436,8 @@ __global__ void __launch_bounds__(TJ_WF_THREADS) wavefront_pixels_kernel(LaneArg
 
 __global__ void __launch_bounds__(TJ_WF_THREADS) wavefront_coeff_kernel(LaneArgs a,
                                                                         Outputs coeff) {
-  const Smem sm = stage_smem(a);
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= a.L) return;
-  CoeffEpi epi{coeff};
-  decode_lane(a, sm, epi, lane);
+  const Smem sm = stage_smem<TJ_STAGE_2>(a);
+  decode_warp_coeff(a, sm, coeff);
 }
 
 // blk ([B][4]), comp ([n_planes][4]) and lut_of ([B]) are host int32
@@ -368,7 +489,7 @@ static int launch(bool pixels, const void* bits, int W, int P, const void* seg_b
   for (int s = 0; s < n_planes; ++s)
     for (int j = 0; j < 4; ++j) a.comp[s][j] = comp[s * 4 + j];
   Outputs out = {{p0, p1, p2, p3}};
-  const size_t smem = smem_bytes(B, nq, n_planes, a.n_lut);
+  const size_t smem = smem_bytes(pixels ? TJ_STAGE_A : TJ_STAGE_2, B, nq, n_planes, a.n_lut);
   const int blocks = (L + TJ_WF_THREADS - 1) / TJ_WF_THREADS;
   if (pixels) {
     if (smem > 48 * 1024)
@@ -415,4 +536,20 @@ extern "C" int tj_wavefront_coeff(const void* bits, int W, int P, const void* se
   return launch(false, bits, W, P, seg_bits, lane_m, nullptr, lane_meta, bit0, dc0, L, tables,
                 huffval, nullptr, blk, comp, lut_of, B, 0, n_planes, mcus_x, c0, c1, c2, c3, err,
                 stream);
+}
+
+// Resident CTAs per SM of kernel A (pixels != 0) or kernel 2 at the
+// dynamic shared memory a launch with B blocks per MCU, nq quantizer sets
+// (kernel A), n_planes planes and n_lut table sets asks for; *smem gets
+// those bytes. For timing tools: launches nothing.
+extern "C" int tj_wavefront_occupancy(int pixels, int B, int nq, int n_planes, int n_lut,
+                                      int* ctas, int* smem) {
+  const size_t bytes =
+      smem_bytes(pixels ? TJ_STAGE_A : TJ_STAGE_2, B, pixels ? nq : 0, n_planes, n_lut);
+  const void* fn =
+      pixels ? (const void*)wavefront_pixels_kernel : (const void*)wavefront_coeff_kernel;
+  if (bytes > 48 * 1024)
+    cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  *smem = (int)bytes;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, fn, TJ_WF_THREADS, bytes);
 }

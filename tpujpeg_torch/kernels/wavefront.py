@@ -844,7 +844,7 @@ def _launch_wavefront(plan: LanePlan, layout: PlaneLayout, outs: Sequence[torch.
         raise ValueError(f"{name}: B={B}, nq={nq}, outputs={len(outs)}, "
                          f"table sets={max(sets) + 1} out of range")
     if emit == "coeff":
-        build.check_aligned(name, outs)  # each block is stored as 16 int4
+        build.check_aligned(name, outs)  # the warp stores each block as 16 int4 words
     if plan.dc0 is not None:
         build.check_aligned(name, [plan.dc0])  # a lane's four are one int4
     blk = np.ascontiguousarray(layout.blk, dtype=np.int32)

@@ -7,8 +7,13 @@ Each entry of --order runs one process on the tpujpeg_torch package of
 --tree[i] (its kernels built there at first use) and times, on the
 inputs chip_smoke.py times them on: kernels A and 2 on the plan of 32
 copies of the 420_2048 fixture (mean of --reps back-to-back launches
-after a warm-up), kernel 6 on kernel 2's coefficients, and kernels 7, 8
-and 9 summed over the scans of their kind on 32 copies of prog_rst_2048
+after a warm-up), kernel 2 also on the norst plans of norst_2048 (the
+default `every` and every=1: /norst_2048, /norst_2048_every1) and on the
+restart plan of the 16384^2 image tile_jpeg(420_2048, 8, 8) (/giant, the
+launch of chip_smoke.py's sharded phase, here without the zeroing of its
+outputs; each of these three with its bound by bytes), kernel 6 on
+kernel 2's coefficients, and kernels 7, 8 and 9 summed over the scans
+of their kind on 32 copies of prog_rst_2048
 (kernels 7 and 8, whose work does not depend on the state, as --reps
 back-to-back launches; kernel 9 --reps times from the scan's own input
 state). Kernel B (sample_color.upsample_color_h2v2) and the 4:2:0 planar
@@ -21,7 +26,7 @@ planes of 32 copies of their 384x512 fixture (/422, /444) and of the
 2048^2 one (/422_2048, /444_2048), and on random planes of 32 x 2048^2
 luma (/random). The fixtures are read from this tool's checkout, so
 every tree gets the same inputs. It uses only entry points that every
-checkout since the planar kernels has.
+checkout since the sharded giant path (fixtures/tile.py) has.
 
 Every kernel is timed two ways in the same process. ``ms``: the card
 sleeps (torch.cuda._sleep) before the start event until every launch of
@@ -31,7 +36,10 @@ also holds the host's time in the Python wrapper wherever that is longer
 than the kernel (the method of chip_smoke.py before the sleep, kept for
 comparison with earlier figures).
 
-Each process prints one JSON line: its tree, the ms per kernel, nvcc's
+Each process prints one JSON line: its tree, the ms per kernel, the
+resident CTAs per SM and dynamic shared memory of kernels A and 2 at the
+main plan's launch (from the library's tj_wavefront_occupancy, where the
+tree has it), nvcc's
 -Xptxas -v report of the build, the SASS instruction count of each
 kernel in the built library (cuobjdump -sass: all instructions but NOP,
 and per opcode), and a SHA-256 digest of each kernel's output (kernel
@@ -152,6 +160,7 @@ def run_one(tree: str, reps: int) -> dict:
     from tpujpeg_torch.kernels import sample_color as sc
     from tpujpeg_torch.kernels import wavefront as wf
     from tpujpeg_torch.kernels import wavefront_prog as wp
+    from tpujpeg_torch.fixtures import tile
 
     if not os.path.abspath(tpujpeg_torch.__file__).startswith(tree + os.sep):
         raise RuntimeError(f"imported {tpujpeg_torch.__file__}, not the package of {tree}")
@@ -205,6 +214,41 @@ def run_one(tree: str, reps: int) -> dict:
     coeffs = layout.alloc(BATCH, dev, "coeff")
     timed("wavefront_coeff", lambda: wf._launch_wavefront(plan, layout, coeffs, err, "coeff"))
     digests["wavefront_coeff"] = _digest(coeffs + [err])
+    occupancy = {}
+    occ = getattr(build.get_lib(), "tj_wavefront_occupancy", None)  # not in older trees
+    if occ is not None:
+        import ctypes
+
+        occ.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+        n_lut = max(wf.table_sets(plan.blk_tables)) + 1
+        for kname, pixels in (("wavefront_pixels", 1), ("wavefront_coeff", 0)):
+            ctas, smem = ctypes.c_int(0), ctypes.c_int(0)
+            build.raise_on_error(occ(pixels, plan.blocks_per_mcu, int(plan.qsets.shape[0]), len(layout.comp),
+                                     n_lut, ctypes.addressof(ctas), ctypes.addressof(smem)), "occupancy")
+            occupancy[kname] = {"ctas_per_sm": ctas.value, "smem_bytes": smem.value}
+
+    bound_ms = {}
+
+    def coeff_rows(label, p, lay, n):
+        """Kernel 2 alone (outputs allocated once) on plan `p`, and its
+        bound by bytes as chip_smoke.py counts it: the payload read once
+        and the coefficients written once, over 3.35 TB/s."""
+        payload = int((p.seg_bits.to(torch.int64) - (0 if p.bit0 is None else p.bit0)).sum()) // 8
+        p = p.to(dev)
+        outs = lay.alloc(n, dev, "coeff")
+        e = torch.zeros(p.n_lanes, dtype=torch.int32, device=dev)
+        timed(f"wavefront_coeff/{label}", lambda: wf._launch_wavefront(p, lay, outs, e, "coeff"))
+        digests[f"wavefront_coeff/{label}"] = _digest(outs + [e])
+        bound_ms[f"wavefront_coeff/{label}"] = (payload + sum(o.numel() * 4 for o in outs)) / 3.35e12 * 1e3
+
+    with open(os.path.join(FIXTURES, "norst_2048.jpg"), "rb") as f:
+        njpeg = tpujpeg_torch.bitstream.parse(f.read())
+    nlay = wf.PlaneLayout.of(wf.ImageGeom.of(njpeg))
+    coeff_rows("norst_2048", wf.build_norst_plan(njpeg), nlay, 1)
+    coeff_rows("norst_2048_every1", wf.build_norst_plan(njpeg, every=1), nlay, 1)
+    with open(os.path.join(FIXTURES, "420_2048.jpg"), "rb") as f:
+        giant = tpujpeg_torch.bitstream.parse(tile.tile_jpeg(f.read(), 8, 8))
+    coeff_rows("giant", wf.build_block_plan([giant]), wf.PlaneLayout.of(wf.ImageGeom.of(giant)), 1)
     frame = jpegs[0].frame
     qtabs = [torch.from_numpy(jpegs[0].qtables[c.tq].astype("int32")).to(dev) for c in frame.components]
     timed("dequant_idct_islow", lambda: [
@@ -279,7 +323,8 @@ def run_one(tree: str, reps: int) -> dict:
     digests["progressive_state"] = _digest(acs + dcs)
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     ms.update(scan_ms)
-    return dict(tree=tree, ms=ms, ms_wrapper=ms_wrapper, digests=digests, ptxas_text=ptxas,
+    return dict(tree=tree, ms=ms, ms_wrapper=ms_wrapper, digests=digests, occupancy=occupancy,
+                bound_ms=bound_ms, ptxas_text=ptxas,
                 ptxas_saved=None if ptxas else build.ptxas_report(),
                 sass=sass_counts(build.library_path(), cuobjdump), device=torch.cuda.get_device_name(0))
 
@@ -324,6 +369,7 @@ def main() -> int:
     summary = {}
     for run in runs:
         s = summary.setdefault(run["label"], {"ms": {}, "ms_wrapper": {}, "ptxas": {}, "sass": {}})
+        s["occupancy"], s["bound_ms"] = run["occupancy"], run["bound_ms"]
         for key in ("ms", "ms_wrapper"):
             for k, v in run[key].items():
                 s[key].setdefault(k, []).append(v)
