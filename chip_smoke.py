@@ -152,6 +152,16 @@ of tpujpeg/. Phases, one JSON line each:
    batch --on-device into a temporary directory three times: every file
    completed, then every file skipped, then with a corrupt member added,
    exit code 2.
+17. graft_entry: tpujpeg_torch.graft_entry.entry()'s step (the 512x512
+   4:2:0 transform) on card 0, counted apart: kernel 6 three times and B
+   once, its RGB equal to the plain transform's (tpujpeg_torch.transform)
+   of the same tensors on the host, each launch of one more call equal to
+   its plain version; its time with CUDA events (median of 3 means of 10
+   calls from an idle card, and device_ms), the plain transform's on the
+   card and the step's bound. Then dryrun_multichip(4) (one shard per
+   card with 4 or more cards, else 4 shards of card 0): its shard and
+   device counts and its launches per kernel (A, 6 and B, each count
+   checked), every launch recorded and held to its plain version.
 
 Then the check that no module was loaded from tpujpeg/ (and that the
 new modules were loaded from tpujpeg_torch/) and nothing was
@@ -1438,12 +1448,14 @@ def main() -> int:
     gplan_dev = args2[0].to(dev)
     gcoeffs = [c[0] for c in coef_k]
     gcoef_host = [c.cpu().numpy() for c in gcoeffs]
-    gplanes = halo.shard_planes(gjpeg, gcoeffs, shard_mesh)
+    gqtabs = qtabs_of(gjpeg)
+    gplanes = halo.shard_planes(gframe, gcoeffs, gqtabs, shard_mesh)
     sh_ms = {
         "wavefront_coeff": device_ms(torch, lambda: wf.decode_lanes_to_coeffs(gplan_dev, *args2[1:], **kw2), 3),
         "dequant_idct_islow": device_ms(torch, lambda: [idct.dequant_idct_islow(*a) for a, _kw, _o
                                                         in rec["dequant_idct_islow"]], 3),
-        "color_and_crop": device_ms(torch, lambda: halo.color_shards(gjpeg, gplanes, config, shard_mesh), 3),
+        "color_and_crop": device_ms(torch, lambda: halo.color_shards(gframe, gplanes, config, shard_mesh,
+                                                                             tpujpeg_torch.bitstream.color_space(gjpeg)), 3),
     }
     b_alone_ms = device_ms(torch, lambda: [b_kern(*a) for a, _kw, _o in rec["upsample_color_h2v2"]], 3)
     gplan_dev = gplan.to(dev)
@@ -1671,12 +1683,97 @@ def main() -> int:
                   == manifest["fixtures"][n]["pil_sha256"], f"cli batch {n} != PIL")
     emit("cli", info_s=s_info, decode_s=s_decode, bench_s=s_bench, bench=bench, batch=counts)
 
+    # 17. graft_entry: entry()'s step on card 0 against the plain transform,
+    # then dryrun_multichip(SHARDS), each counted apart.
+    from tpujpeg_torch import graft_entry
+    from tpujpeg_torch import transform as plain_t
+
+    efn, eargs = graft_entry.entry(dev)
+    eframe = graft_entry.make_frame(*graft_entry.ENTRY_SIZE, graft_entry.H2V2)
+    build.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    eout = efn(*eargs)
+    torch.cuda.synchronize()
+    e_launches = {k: n for k, n in build.LAUNCHES.items() if n}
+    check(e_launches == {"dequant_idct_islow": 3, "upsample_color_h2v2": 1}, f"entry() launched {e_launches}")
+    for k, n in e_launches.items():
+        launches[k] += n
+    eplain = plain_t.transform_frame(eframe, [c.cpu() for c in eargs[0]], [q.cpu() for q in eargs[1]])
+    e_err = max_abs(torch, eout.cpu(), eplain)
+    check(tuple(eout.shape) == (*graft_entry.ENTRY_SIZE, 3) and eout.device == dev and e_err == 0,
+          f"entry(): {tuple(eout.shape)} on {eout.device}, max_abs_err {e_err} against the plain transform")
+    # Each launch of one more call (recorded, not counted) against its plain
+    # version on its own inputs.
+    rec = collections.defaultdict(list)
+    with mock.patch.object(idct, "dequant_idct_islow", recorded(rec, "dequant_idct_islow", idct.dequant_idct_islow)), \
+            mock.patch.dict(pipeline._NHWC_KERNELS, {h2v2: recorded(rec, "upsample_color_h2v2", b_kern)}):
+        check(torch.equal(efn(*eargs), eout), "entry(): a recorded call's RGB differs")
+    e_kerr = {"dequant_idct_islow": max(max_abs(torch, out, idct.dequant_idct_islow_plain(*a))
+                                        for a, _kw, out in rec["dequant_idct_islow"]),
+              "upsample_color_h2v2": max(max_abs(torch, out, b_plain(*a)) for a, _kw, out in rec["upsample_color_h2v2"])}
+    check(not any(e_kerr.values()), f"entry(): kernels != plain {e_kerr}")
+    e_ms = [cuda_ms(torch, lambda: efn(*eargs), 10) for _ in range(3)]
+    e_dev_ms = device_ms(torch, lambda: efn(*eargs), 10)
+    e_plain_ms = cuda_ms(torch, lambda: plain_t.transform_frame(eframe, list(eargs[0]), list(eargs[1])), 3)
+    # The step reads the coefficients and quantizers once and writes the
+    # RGB once; kernel 6's operations per block and B's per pixel.
+    e_blocks = sum(c.numel() // 64 for c in eargs[0])
+    e_bound = bound(sum(c.numel() * 4 for c in eargs[0]) + 3 * 64 * 4 + eout.numel(),
+                    e_blocks * OPS_IDCT_BLOCK + eout.numel() // 3 * OPS_COLOR_PIXEL["upsample_color_h2v2"])
+    emit("graft_entry", entry="entry()", shape=list(eout.shape), launches=e_launches, max_abs_err_vs_plain=e_err,
+         kernel_max_abs_err_vs_plain=e_kerr, cuda_ms=e_ms, cuda_ms_median=statistics.median(e_ms),
+         device_ms=e_dev_ms, plain_ms=e_plain_ms, bound_ms=e_bound[0], bound_by=e_bound[1], nvidia_smi=smi)
+    del eout, eplain, rec
+
+    # dryrun_multichip(SHARDS): paths 1, 1a, 1b, 2 and 3 over the mesh,
+    # each launch of A, 6 and B recorded and held to its plain version.
+    rec = collections.defaultdict(list)
+    build.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(wf, "decode_lanes_to_planes", recorded(rec, "wavefront_pixels", wf.decode_lanes_to_planes)), \
+            mock.patch.object(idct, "dequant_idct_islow", recorded(rec, "dequant_idct_islow", idct.dequant_idct_islow)), \
+            mock.patch.dict(pipeline._NHWC_KERNELS, {h2v2: recorded(rec, "upsample_color_h2v2", b_kern)}):
+        dres = graft_entry.dryrun_multichip(SHARDS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    d_launches = {k: n for k, n in build.LAUNCHES.items() if n}
+    # Paths 1 and 1a: kernel 6 per component and B once on each shard with
+    # rows, and once more for the single-device transform; path 2: A and B
+    # once per shard; path 3: kernel 6 per component and B once per piece
+    # (one image each) and per single-device image.
+    rows_1a = sum(a < b for a, b in halo.shard_spans(graft_entry.make_frame(16 * (2 * SHARDS + 1), 128,
+                                                                             graft_entry.H2V2), SHARDS))
+    transforms = (SHARDS + 1) + (rows_1a + 1) + 2 * SHARDS
+    want_d = {"wavefront_pixels": SHARDS, "dequant_idct_islow": 3 * transforms,
+              "upsample_color_h2v2": transforms + SHARDS}
+    check(d_launches == want_d, f"dryrun_multichip({SHARDS}) launched {d_launches}, want {want_d}")
+    check(dres["shards"] == SHARDS and dres["devices"] == len(set(shard_mesh)),
+          f"dryrun_multichip: {dres['shards']} shards on {dres['devices']} devices")
+    for k, n in d_launches.items():
+        launches[k] += n
+    d_err = {"wavefront_pixels": 0}
+    for a, kw, (planes_k, err_k) in rec["wavefront_pixels"]:
+        planes_p, err_p = wf.decode_lanes_to_planes(*a, **{**kw, "plain": True})
+        check(torch.equal(err_k, err_p), "dryrun: kernel A's error bits != plain")
+        d_err["wavefront_pixels"] = max([d_err["wavefront_pixels"]]
+                                        + [max_abs(torch, x, y) for x, y in zip(planes_k, planes_p)])
+    d_err["dequant_idct_islow"] = max(max_abs(torch, out, idct.dequant_idct_islow_plain(*a))
+                                      for a, _kw, out in rec["dequant_idct_islow"])
+    d_err["upsample_color_h2v2"] = max(max_abs(torch, out, b_plain(*a)) for a, _kw, out in rec["upsample_color_h2v2"])
+    check(not any(d_err.values()), f"dryrun: kernels != plain {d_err}")
+    for k in set(d_err) | set(e_kerr):
+        results[k]["max_abs_err"] = max(results[k]["max_abs_err"], d_err.get(k, 0), e_kerr.get(k, 0))
+    emit("graft_entry", entry=f"dryrun_multichip({SHARDS})", shards=dres["shards"], devices=dres["devices"],
+         mesh=dres["mesh"], seconds=seconds, launches=d_launches, max_abs_err_vs_plain=d_err)
+    del dres, rec
+
     # The modules of the sharded paths and front ends (the cli and the
     # batch job ran in subprocesses) come from tpujpeg_torch/, and load
     # nothing of tpujpeg/ (the checks below).
     port_dir = os.path.join(HERE, "tpujpeg_torch") + os.sep
     for name in ("tpujpeg_torch.cli", "tpujpeg_torch.parallel.halo", "tpujpeg_torch.parallel.mesh",
-                 "tpujpeg_torch.parallel.manifest", "tpujpeg_torch.fixtures.tile"):
+                 "tpujpeg_torch.parallel.manifest", "tpujpeg_torch.fixtures.tile", "tpujpeg_torch.graft_entry"):
         check(os.path.abspath(importlib.import_module(name).__file__).startswith(port_dir),
               f"{name} not loaded from the port")
     loaded = sorted(m for m in ("jax", "jaxlib", "PIL", "tpujpeg") if m in sys.modules)

@@ -1043,3 +1043,49 @@ def test_sharded_paths_over_every_card(cuda):
     assert not res.errors
     for n, img in zip(names, res.images):
         assert _sha(torch.from_numpy(img)) == MANIFEST["fixtures"][n]["pil_sha256"]
+
+
+# --- the graft entry points (tpujpeg_torch/graft_entry.py)
+
+
+def test_graft_entry_on_the_card_equals_the_plain_transform(cuda):
+    """entry()'s step runs kernel 6 three times and B once, and equals the
+    plain transform of the same tensors copied to the host."""
+    from tpujpeg_torch import graft_entry
+    from tpujpeg_torch import transform as T
+
+    fn, args = graft_entry.entry()
+    assert all(t.device == cuda for part in args for t in part)
+    build.LAUNCHES.clear()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    assert {k: n for k, n in build.LAUNCHES.items() if n} == {"dequant_idct_islow": 3, "upsample_color_h2v2": 1}
+    assert out.device == cuda and tuple(out.shape) == (*graft_entry.ENTRY_SIZE, 3)
+    frame = graft_entry.make_frame(*graft_entry.ENTRY_SIZE, graft_entry.H2V2)
+    assert torch.equal(out.cpu(), T.transform_frame(frame, [c.cpu() for c in args[0]], [q.cpu() for q in args[1]]))
+
+
+def test_dryrun_multichip_on_the_card(cuda):
+    """Four shards: one per card with four or more cards, else card 0 four
+    times; every path checks itself and raises on a wrong result."""
+    from tpujpeg_torch import graft_entry
+
+    build.LAUNCHES.clear()
+    res = graft_entry.dryrun_multichip(4)
+    cards = 4 if torch.cuda.device_count() >= 4 else 1
+    assert (res["shards"], res["devices"]) == (4, cards)
+    assert res["mesh"][0] == str(cuda) and res["outputs"]["1"].device == cuda
+    assert all(build.LAUNCHES[k] for k in ("wavefront_pixels", "dequant_idct_islow", "upsample_color_h2v2"))
+
+
+def test_dryrun_multichip_one_shard_per_card(cuda):
+    """One shard per card (skips with fewer than two): the shards' rows,
+    fixup totals and batch pieces cross cards."""
+    from tpujpeg_torch import graft_entry
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA cards: one shard per card")
+    res = graft_entry.dryrun_multichip(n)
+    assert res["devices"] == n and res["mesh"] == [f"cuda:{i}" for i in range(n)]
+    assert [t.device.index for t in res["outputs"]["1b"]] == list(range(n))

@@ -181,7 +181,8 @@ def test_shard_planes_hold_each_window_cropped_to_the_image():
     one cut at the component's sample height (97 luma rows, 49 chroma)."""
     jpeg = bitstream.parse(make_jpeg(80, 97, seed=97, subsampling=2))
     coeffs = _entropy_decode(jpeg, DecodeConfig(), DecodeStats(), "cpu")
-    planes = halo.shard_planes(jpeg, coeffs, _cpu(4))
+    qtabs = [jpeg.qtables[c.tq].astype(np.int32) for c in jpeg.frame.components]
+    planes = halo.shard_planes(jpeg.frame, coeffs, qtabs, _cpu(4))
     assert [[p.shape[1] for p in per_c] for per_c in planes] == [[48, 24, 24], [64, 32, 32], [49, 25, 25],
                                                                  [17, 9, 9]]
     whole = [idct.dequant_idct_islow_plain(torch.as_tensor(cf).reshape(1, -1, 64),

@@ -54,7 +54,9 @@ data, n_shards, config, mesh)`` decodes one giant image by MCU rows with
 halo rows between shards; ``kernels.wavefront.decode_norst_sharded`` and
 ``decode_batch_to_rgb_sharded`` split a marker-free scan's lanes and a
 uniform batch over the mesh. The command line is ``python -m
-tpujpeg_torch.cli``.
+tpujpeg_torch.cli``; the graft entry points (``entry()``, the 512x512
+transform step, and ``dryrun_multichip(n)``, the sharded paths checked
+over n devices) are in ``graft_entry.py``.
 
 A progressive group (images with one ``wavefront_prog.scan_group_key``:
 same frame, scan script and Huffman tables) decodes through the

@@ -9,8 +9,8 @@
   (``decode_stream``, ``decode_batch_pipelined``).
 - halo.py: one giant image's MCU rows sharded over a mesh, each shard
   decoding one MCU row of its neighbours either side, and the
-  DC-predictor prefix fixup (``decode_sharded``, ``shard_windows``,
-  ``dc_prefix_fixup``).
+  DC-predictor prefix fixup (``decode_sharded``, ``sharded_transform``,
+  ``shard_windows``, ``dc_prefix_fixup``).
 - mesh.py: meshes (tuples of ``torch.device``, one per shard, driven
   from one process) and multi-process start-up.
 - manifest.py: the resumable batch job behind ``cli batch``.

@@ -109,13 +109,29 @@ def _pieces(items: Sequence, mesh: Sequence[torch.device]) -> List[Tuple[torch.d
     return [(dev, items[i * per : (i + 1) * per]) for i, dev in enumerate(mesh) if i * per < len(items)]
 
 
+def transform_over_mesh(frame, coeffs: Sequence[Sequence], qtabs: Sequence, config: DecodeConfig,
+                        mesh: Sequence[torch.device], emit: Callable[[int, torch.Tensor], None],
+                        color: Optional[str] = None) -> None:
+    """``transform_batch`` of images of one geometry and one quantizer set,
+    split over `mesh` in contiguous pieces (``_pieces``): coeffs[k] holds
+    image k's per-component int32 [padded_blocks, 64] (tensors on any
+    device, or host arrays), qtabs[ci] the zigzag int32 [64] quantizer of
+    component ci. Calls emit(k, rgb) for every image, rgb on its piece's
+    device."""
+    for device, piece in _pieces(range(len(coeffs)), mesh):
+        stack = [torch.stack([torch.as_tensor(coeffs[k][ci]).to(device) for k in piece])
+                 for ci in range(frame.n_components)]
+        out = pipeline.transform_batch(frame, stack, qtabs, config, color=color)
+        for slot, k in enumerate(piece):
+            emit(k, out[slot])
+
+
 def _transform_by_qset(jpegs: Sequence, coeffs: Sequence[Sequence], config: DecodeConfig,
                        mesh: Sequence[torch.device], emit: Callable[[int, torch.Tensor], None]) -> None:
-    """``transform_batch`` over images of one bucket in sub-buckets of one
-    quantizer set each, every sub-bucket split over `mesh` (``_pieces``);
-    coeffs[k] holds image k's per-component int32 [padded_blocks, 64]
-    (tensors on any device, or host arrays). Calls emit(k, rgb) for every
-    image, rgb on its piece's device."""
+    """``transform_over_mesh`` over images of one bucket in sub-buckets of
+    one quantizer set each; coeffs[k] holds image k's per-component int32
+    [padded_blocks, 64]. Calls emit(k, rgb) for every image, rgb on its
+    piece's device."""
     by_q: Dict[Tuple, List[int]] = {}
     for k, j in enumerate(jpegs):
         by_q.setdefault(_qkey(j), []).append(k)
@@ -123,12 +139,8 @@ def _transform_by_qset(jpegs: Sequence, coeffs: Sequence[Sequence], config: Deco
     for ks in by_q.values():
         j0 = jpegs[ks[0]]
         qtabs = [j0.qtables[c.tq].astype(np.int32) for c in frame.components]
-        for device, piece in _pieces(ks, mesh):
-            stack = [torch.stack([torch.as_tensor(coeffs[k][ci]).to(device) for k in piece])
-                     for ci in range(frame.n_components)]
-            out = pipeline.transform_batch(frame, stack, qtabs, config, color=bitstream.color_space(j0))
-            for slot, k in enumerate(piece):
-                emit(k, out[slot])
+        transform_over_mesh(frame, [coeffs[k] for k in ks], qtabs, config, mesh,
+                            lambda slot, img, ks=ks: emit(ks[slot], img), color=bitstream.color_space(j0))
 
 
 def decode_batch_on_device(datas: Sequence[bytes], config: DecodeConfig = DEFAULT_CONFIG,

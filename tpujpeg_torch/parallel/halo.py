@@ -79,36 +79,34 @@ def _sub_frame(frame, height: int):
     return sub
 
 
-def shard_planes(jpeg, coeffs: Sequence, mesh: Sequence) -> List[List[torch.Tensor]]:
+def shard_planes(frame, coeffs: Sequence, qtabs: Sequence, mesh: Sequence) -> List[List[torch.Tensor]]:
     """Kernel 6 on each shard's window of coefficient rows
     (``shard_windows``), on its device. coeffs[ci]: zigzag int32
-    [padded_blocks, 64] per frame component (a tensor on any device, or a
-    host array). Returns per shard with rows, per component, uint8
-    [1, rows, padded_w] sample planes of the window, cropped to the
-    image's sample rows."""
-    frame = jpeg.frame
+    [padded_blocks, 64] per frame component and qtabs[ci]: its zigzag
+    int32 [64] quantizer (tensors on any device, or host arrays). Returns
+    per shard with rows, per component, uint8 [1, rows, padded_w] sample
+    planes of the window, cropped to the image's sample rows."""
     planes: List[List[torch.Tensor]] = []
     for dev, (_a, _b, wa, wb) in zip(mesh, shard_windows(frame, len(mesh))):
         per_c = []
-        for c, cf in zip(frame.components, coeffs):
+        for c, cf, qt in zip(frame.components, coeffs, qtabs):
             grid = torch.as_tensor(cf).reshape(c.padded_hb, c.padded_wb, 64)
             blk = grid[wa * c.v : wb * c.v].to(dev, non_blocking=True).reshape(1, -1, 64)
-            q = torch.from_numpy(jpeg.qtables[c.tq].astype("int32")).to(dev, non_blocking=True)
+            q = torch.as_tensor(qt, dtype=torch.int32).to(dev, non_blocking=True)
             plane = idct.dequant_idct_islow(blk, q, (wb - wa) * c.v, c.padded_wb)
             per_c.append(plane[:, : min(wb * c.v * 8, c.dheight) - wa * c.v * 8])
         planes.append(per_c)
     return planes
 
 
-def color_shards(jpeg, planes: Sequence[Sequence[torch.Tensor]], config: DecodeConfig,
-                 mesh: Sequence) -> torch.Tensor:
+def color_shards(frame, planes: Sequence[Sequence[torch.Tensor]], config: DecodeConfig,
+                 mesh: Sequence, color: Optional[str] = None) -> torch.Tensor:
     """From ``shard_planes``' planes: the color stage on each shard's
     window, on its device, and the shard's own rows copied into the image
-    on ``mesh[0]``. Returns uint8 [H, W, 3] (or [H, W] gray, [H, W, 4]
-    CMYK/YCCK)."""
-    frame = jpeg.frame
+    on ``mesh[0]``. `color` as ``pipeline.transform_planes_batch`` takes
+    it (default: from the component count). Returns uint8 [H, W, 3] (or
+    [H, W] gray, [H, W, 4] CMYK/YCCK)."""
     row = frame.vmax * 8
-    color = bitstream.color_space(jpeg)
     out: Optional[torch.Tensor] = None
     for (a, b, wa, wb), win in zip(shard_windows(frame, len(mesh)), planes):
         rows = min(b * row, frame.height) - a * row
@@ -121,6 +119,20 @@ def color_shards(jpeg, planes: Sequence[Sequence[torch.Tensor]], config: DecodeC
     return out
 
 
+def sharded_transform(frame, coeffs: Sequence, qtabs: Sequence, config: DecodeConfig, mesh: Sequence,
+                      color: Optional[str] = None) -> torch.Tensor:
+    """One image's transform with its MCU rows sharded over `mesh`, from
+    its coefficients: ``shard_planes`` (kernel 6 on each shard's window)
+    and ``color_shards`` (the color stage on it, each shard's rows copied
+    into the image on ``mesh[0]``); the counterpart of the reference's
+    ``_build_sharded_transform``. coeffs[ci], qtabs[ci] and `color` as
+    those take them. Returns the image on ``mesh[0]``: uint8 [H, W, 3]
+    (or [H, W] gray, [H, W, 4] CMYK/YCCK), exactly H rows (no padding
+    rows, where the reference's has them)."""
+    mesh = mesh_lib.as_mesh(mesh)
+    return color_shards(frame, shard_planes(frame, coeffs, qtabs, mesh), config, mesh, color)
+
+
 def decode_sharded(data: bytes, n_shards: Optional[int] = None, config: DecodeConfig = DEFAULT_CONFIG,
                    mesh: Optional[Sequence] = None):
     """Decode one JPEG byte string with its MCU rows sharded over `mesh`
@@ -131,10 +143,10 @@ def decode_sharded(data: bytes, n_shards: Optional[int] = None, config: DecodeCo
     through ``decode_norst_sharded`` (kernel 2 per shard, DC base across
     shards by ``dc_prefix_fixup``); where those refuse the stream
     (``JpegUnsupportedError``), ``decode_norst_to_device`` on ``mesh[0]``,
-    then host entropy. Then ``shard_planes`` (kernel 6 on each shard's
-    window) and ``color_shards`` (the color stage on it). Returns uint8
-    [H, W, 3] (or [H, W] gray, [H, W, 4] CMYK/YCCK): numpy under
-    ``config.to_numpy``, else a tensor on ``mesh[0]``. Like the
+    then host entropy. Then ``sharded_transform``: kernel 6 and the color
+    stage on each shard's window. Returns uint8 [H, W, 3] (or [H, W]
+    gray, [H, W, 4] CMYK/YCCK): numpy under ``config.to_numpy``, else a
+    tensor on ``mesh[0]``. Like the
     reference's, it ignores ``transform_engine`` and ``idct``."""
     from ..decoder import _entropy_decode
     from ..kernels import wavefront as wf
@@ -165,5 +177,6 @@ def decode_sharded(data: bytes, n_shards: Optional[int] = None, config: DecodeCo
                 coeffs = None
     if coeffs is None:
         coeffs = _entropy_decode(jpeg, config, DecodeStats(), mesh[0])
-    out = color_shards(jpeg, shard_planes(jpeg, coeffs, mesh), config, mesh)
+    qtabs = [torch.from_numpy(jpeg.qtables[c.tq].astype("int32")) for c in frame.components]
+    out = sharded_transform(frame, coeffs, qtabs, config, mesh, bitstream.color_space(jpeg))
     return out.cpu().numpy() if config.to_numpy else out
