@@ -953,7 +953,7 @@ def main() -> int:
     pin_walls = {"pinned": [], "pageable": []}
     for i, plans_in in enumerate(["pinned", "pageable"] * 4):
         if plans_in == "pageable":
-            stream_mod._prep = lambda datas_, members, _pin: real_prep(datas_, members, False)
+            stream_mod._prep = lambda datas_, members, _pin, *trace: real_prep(datas_, members, False, *trace)
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()

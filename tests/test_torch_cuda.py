@@ -1089,3 +1089,38 @@ def test_dryrun_multichip_one_shard_per_card(cuda):
     res = graft_entry.dryrun_multichip(n)
     assert res["devices"] == n and res["mesh"] == [f"cuda:{i}" for i in range(n)]
     assert [t.device.index for t in res["outputs"]["1b"]] == list(range(n))
+
+
+def test_spans_record_nothing_under_a_profile_of_the_card_alone(cuda):
+    """A profile of the card alone (torch.profiler with ProfilerActivity.CUDA,
+    as the benchmark's untraced runs take) leaves the port's span log empty;
+    with the host's events too, each fused packed16 chunk counts its two
+    launches (kernel A, the 4:2:0 planar kernel) under its own chunk id, and
+    no device event carries a span's name (the benchmark counts every
+    device event but user annotations as the card's work)."""
+    import threading
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpujpeg_torch import spans
+
+    datas = [_read("420_2048")] * 4
+    cfg = tpujpeg_torch.DecodeConfig(to_numpy=False)
+    spans.drain()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        assert not spans.recording()
+        list(tpujpeg_torch.decode_stream(datas, cfg, chunk_size=2, layout="packed16", device=cuda))
+        tpujpeg_torch.decode(datas[0], cfg, device=cuda)
+    assert spans.drain() == []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        assert spans.recording()
+        chunks = list(tpujpeg_torch.decode_stream(datas, cfg, chunk_size=2, layout="packed16", device=cuda))
+    recs = spans.drain()
+    assert [c.engine for c in chunks] == ["wavefront-fused"] * 2
+    for k in (0, 1):
+        assert sum(r.n for r in recs if r.name == spans.LAUNCH and r.unit == k) == 2
+    assert {r.name for r in recs if r.thread != threading.get_ident()} == {spans.PARSE, spans.PLAN}
+    assert any(e.name == spans.SYNC for e in prof.events())
+    assert all(e.is_user_annotation for e in prof.events()
+               if e.device_type == DeviceType.CUDA and e.name.startswith("tpujpeg_torch."))

@@ -19,6 +19,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from . import spans
 from .errors import (
     JpegSyntaxError,
     JpegTruncatedError,
@@ -323,6 +324,7 @@ def _scan_end(data: bytes, start: int) -> Tuple[int, List[int]]:
     return _find_scan_end(data, start)
 
 
+@spans.spanned(spans.PARSE)
 def parse(data: bytes) -> JpegData:
     """Parse a complete JFIF/JPEG byte string into structured metadata +
     raw scan payloads. Raises JpegSyntaxError / JpegUnsupportedError."""

@@ -5,7 +5,13 @@ many files with manifest-based resume.
 Port of ``tpujpeg/cli.py``: the same subcommands, flags and printed
 JSON, but ``--transform`` takes the port's engines (auto, cuda, torch),
 ``--device`` (default cuda) names the device the decode runs on, and
-``--profile DIR`` writes a ``torch.profiler`` Chrome trace.
+``--profile DIR`` writes a ``torch.profiler`` Chrome trace. The trace holds
+the port's own spans (``tpujpeg_torch.spans``: ``tpujpeg_torch.decode``
+and, under it, ``parse``, ``plan``, ``copy_in`` and ``card_wait``) beside
+torch's host and device events. A stream's prep threads are not in a
+profile: in a program of your own, ``tpujpeg_torch.spans.drain()`` after a
+profiled ``decode_stream`` returns their ``parse`` and ``plan`` records
+too, each with its chunk index and its start and end on the epoch clock.
 
 Usage:
     python -m tpujpeg_torch.cli decode in.jpg out.png [--entropy ...] [--profile DIR]

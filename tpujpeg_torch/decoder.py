@@ -28,12 +28,13 @@ fused paths refuse (several scans) falls through to the staged path:
 
 from __future__ import annotations
 
+import itertools
 import time
 from typing import List
 
 import torch
 
-from . import bitstream, huffman
+from . import bitstream, huffman, spans
 from . import transform as T
 from .config import DEFAULT_CONFIG, DecodeConfig
 from .errors import JpegUnsupportedError
@@ -74,12 +75,21 @@ def _finish(out: torch.Tensor, config: DecodeConfig, stats: DecodeStats, return_
     return (out, stats) if return_stats else out
 
 
+_requests = itertools.count()  # decode()'s request numbers: its traced units
+
+
 def decode(data: bytes, config: DecodeConfig = DEFAULT_CONFIG, device="cuda",
            return_stats: bool = False):
     """Decode one JPEG byte string on `device` to uint8 [H, W, 3] RGB,
     [H, W] gray or [H, W, 4] CMYK: a numpy array when
     ``config.to_numpy`` (the default, as in the reference), else a
-    tensor on `device`."""
+    tensor on `device`. Traced, each call is one unit of the spans
+    (``spans.DECODE`` and everything under it)."""
+    with spans.adopt(next(_requests) if spans.recording() else None), spans.span(spans.DECODE):
+        return _decode(data, config, device, return_stats)
+
+
+def _decode(data: bytes, config: DecodeConfig, device, return_stats: bool):
     device = torch.device(device)
     stats = DecodeStats()
     t0 = time.perf_counter()
@@ -120,18 +130,21 @@ def decode(data: bytes, config: DecodeConfig = DEFAULT_CONFIG, device="cuda",
         if out is not None:
             stats.transform_engine = kernel_engine
             if device.type == "cuda":
-                torch.cuda.synchronize(device)
+                with spans.span(spans.CARD_WAIT):
+                    torch.cuda.synchronize(device)
             stats.t_transform = time.perf_counter() - t0
             return _finish(out, config, stats, return_stats)
         stats.entropy_fallbacks += 1
 
     t0 = time.perf_counter()
     coeffs = _entropy_decode(jpeg, config, stats, device)
-    coeffs = [torch.as_tensor(c).to(device) for c in coeffs]
-    qtabs = [torch.from_numpy(jpeg.qtables[c.tq].astype("int32")).to(device)
-             for c in frame.components]
+    with spans.span(spans.COPY_IN):
+        coeffs = [torch.as_tensor(c).to(device) for c in coeffs]
+        qtabs = [torch.from_numpy(jpeg.qtables[c.tq].astype("int32")).to(device)
+                 for c in frame.components]
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        with spans.span(spans.CARD_WAIT):
+            torch.cuda.synchronize(device)
     stats.t_entropy = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -148,7 +161,8 @@ def decode(data: bytes, config: DecodeConfig = DEFAULT_CONFIG, device="cuda",
     else:
         raise ValueError(f"unknown transform engine {engine!r}")
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        with spans.span(spans.CARD_WAIT):
+            torch.cuda.synchronize(device)
     stats.t_transform = time.perf_counter() - t0
     return _finish(out, config, stats, return_stats)
 

@@ -14,7 +14,8 @@ Every nvcc runs with ``-Xptxas -v`` (in ``FLAGS``); its report (registers, share
 memory, stack and spill bytes per kernel) is parsed and saved beside the library
 (``ptxas_report``). Module state is the library handle and
 ``LAUNCHES``, the per-kernel launch counters the wrappers bump after
-each launch.
+each launch through ``launched``, which also counts the launch in the
+traced unit (``spans.count``).
 """
 
 from __future__ import annotations
@@ -33,6 +34,8 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from .. import spans
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
@@ -40,6 +43,14 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = [ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
+
+
+def launched(name: str) -> None:
+    """Count one launch of kernel `name`: in ``LAUNCHES``, and as a
+    ``launch`` of the traced unit, if any (``spans.count``)."""
+    LAUNCHES[name] += 1
+    spans.count(spans.LAUNCH)
+
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None

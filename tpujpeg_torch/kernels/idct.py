@@ -83,7 +83,7 @@ def dequant_idct_islow(coeffs: torch.Tensor, qtab: torch.Tensor, padded_hb: int,
         dc.data_ptr() if dc is not None else None, n, padded_hb, padded_wb, out.data_ptr(),
     )
     build.raise_on_error(rc, "dequant_idct_islow")
-    build.LAUNCHES["dequant_idct_islow"] += 1
+    build.launched("dequant_idct_islow")
     return out
 
 

@@ -99,7 +99,7 @@ def _run(name: str, plain, y, cb, cr, extra=(), planar: bool = False) -> torch.T
         args += [t.data_ptr(), t.stride(0), t.stride(1)]
     rc = build.call(y.device, "tj_" + name, *args, n, h, w, *extra, out.data_ptr())
     build.raise_on_error(rc, name)
-    build.LAUNCHES[name] += 1
+    build.launched(name)
     return out.view(torch.uint16) if planar else out
 
 

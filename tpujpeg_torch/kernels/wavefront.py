@@ -43,7 +43,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import bitstream
+from .. import bitstream, spans
 from .. import transform as T
 from ..config import DEFAULT_CONFIG, DecodeConfig
 from ..errors import JpegHuffmanError, JpegSyntaxError, JpegTruncatedError, JpegUnsupportedError
@@ -151,7 +151,8 @@ class LanePlan:
         """The plan's tensors on `device`. With `non_blocking`, copies from
         pinned host memory return before they land: the caller keeps this
         plan alive until the stream has passed them."""
-        return self._map(lambda t: t.to(device, non_blocking=non_blocking))
+        with spans.span(spans.COPY_IN):
+            return self._map(lambda t: t.to(device, non_blocking=non_blocking))
 
 
 def _table_tensors(blk_tables) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -245,6 +246,7 @@ def plan_key(jpeg) -> Tuple:
     return tables
 
 
+@spans.spanned(spans.PLAN)
 def build_block_plan(jpegs: Sequence, pin_memory: bool = False) -> LanePlan:
     """Flat lane plan for a uniform batch of parsed baseline JPEGs.
 
@@ -496,6 +498,7 @@ def _scan_split_host(jpeg, scan, every: int):
     return dest, offs_flat, np.asarray(seg_first, np.int64), np.concatenate(dcs_all)
 
 
+@spans.spanned(spans.PLAN)
 def build_norst_plan(jpeg, every: int = 0) -> LanePlan:
     """Lane plan of one parsed baseline scan cut at skeleton-scan bit
     offsets: for marker-free streams (the whole scan one serial chain)
@@ -872,7 +875,7 @@ def _launch_wavefront(plan: LanePlan, layout: PlaneLayout, outs: Sequence[torch.
             *ptrs, err.data_ptr(),
         )
     build.raise_on_error(rc, name)
-    build.LAUNCHES[name] += 1
+    build.launched(name)
 
 
 def _decode_lanes(plan: LanePlan, geoms: Sequence[ImageGeom], device, plain: bool, emit: str,
@@ -953,7 +956,8 @@ def failures_from_err(errs: np.ndarray, lane_meta: np.ndarray) -> Dict[int, Exce
 def resolve_rgb_errors(err: torch.Tensor, plan: LanePlan) -> Dict[int, Exception]:
     """Read back a decode's error vector and map it to per-image
     failures."""
-    errs = err.cpu().numpy().reshape(-1)[: plan.n_lanes]
+    with spans.span(spans.CARD_WAIT):
+        errs = err.cpu().numpy().reshape(-1)[: plan.n_lanes]
     return failures_from_err(errs, plan.lane_meta.cpu().numpy())
 
 

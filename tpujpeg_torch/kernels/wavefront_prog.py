@@ -55,7 +55,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from .. import bitstream
+from .. import bitstream, spans
 from ..config import DEFAULT_CONFIG, DecodeConfig
 from ..errors import JpegSyntaxError, JpegTruncatedError, JpegUnsupportedError
 from ..native import entropy as native_entropy
@@ -167,11 +167,12 @@ class ScanPlan:
         return self.lane_meta[:, 2]
 
     def to(self, device) -> "ScanPlan":
-        return dataclasses.replace(
-            self, bits=self.bits.to(device), seg_bits=self.seg_bits.to(device),
-            lane_meta=self.lane_meta.to(device), tables=self.tables.to(device),
-            huffval=self.huffval.to(device), luts=self.luts.to(device),
-        )
+        with spans.span(spans.COPY_IN):
+            return dataclasses.replace(
+                self, bits=self.bits.to(device), seg_bits=self.seg_bits.to(device),
+                lane_meta=self.lane_meta.to(device), tables=self.tables.to(device),
+                huffval=self.huffval.to(device), luts=self.luts.to(device),
+            )
 
 
 @functools.lru_cache(maxsize=64)
@@ -529,7 +530,7 @@ def dc_first(plan: ScanPlan, dcs: Sequence[torch.Tensor], err: torch.Tensor, *,
         dev, "tj_prog_dc_first", *_row_args(plan), len(cols), blk.ctypes.data, len(plan.blk),
         comp.ctypes.data, plan.mcus_x, plan.al, *ptrs, err.data_ptr())
     build.raise_on_error(rc, "prog_dc_first")
-    build.LAUNCHES["prog_dc_first"] += 1
+    build.launched("prog_dc_first")
 
 
 def _launch_ac(name: str, plan: ScanPlan, state: torch.Tensor, err: torch.Tensor) -> None:
@@ -544,7 +545,7 @@ def _launch_ac(name: str, plan: ScanPlan, state: torch.Tensor, err: torch.Tensor
         dev, "tj_" + name, *_row_args(plan), plan.mcus_x, pwb, nb, plan.ss, plan.se, plan.al,
         state.data_ptr(), err.data_ptr())
     build.raise_on_error(rc, name)
-    build.LAUNCHES[name] += 1
+    build.launched(name)
 
 
 def ac_first(plan: ScanPlan, state: torch.Tensor, err: torch.Tensor, *, plain: bool = False) -> None:
@@ -682,9 +683,10 @@ def plan_scans(jpegs: Sequence) -> List[ScanStep]:
     """The host work of a group's decode: per scan, a lane plan (kernel
     scans) or the OR masks (DC refinement). Raises on streams the
     reference rejects, and JpegUnsupportedError for a mixed group."""
-    check_group(jpegs)
-    return [build_dc_refine(jpegs, k) if scan_kind(s) == "dc_refine" else build_scan_plan(jpegs, k)
-            for k, s in enumerate(jpegs[0].scans)]
+    with spans.span(spans.PLAN):
+        check_group(jpegs)
+        return [build_dc_refine(jpegs, k) if scan_kind(s) == "dc_refine" else build_scan_plan(jpegs, k)
+                for k, s in enumerate(jpegs[0].scans)]
 
 
 def new_state(frame, n: int, device) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
@@ -703,7 +705,9 @@ def apply_step(step: ScanStep, acs: List[torch.Tensor], dcs: List[torch.Tensor],
     dev = acs[0].device
     if isinstance(step, DcRefine):
         for ci, mask in zip(step.comp_indices, step.masks):
-            dcs[ci] |= mask.to(dev)
+            with spans.span(spans.COPY_IN):
+                mask = mask.to(dev)
+            dcs[ci] |= mask
         return None
     plan = step.to(dev)
     err = torch.zeros(plan.n_lanes, dtype=torch.int32, device=dev)
@@ -751,12 +755,14 @@ def resolve_scan_errors(errs: Sequence[torch.Tensor], kernel_plans: Sequence[Sca
     failures: Dict[int, Exception] = {}
     if not errs:
         return failures
-    flat = torch.cat(list(errs)).cpu().numpy()
+    with spans.span(spans.CARD_WAIT):
+        flat = torch.cat(list(errs)).cpu().numpy()
+        metas = [plan.lane_meta.cpu().numpy() for plan in kernel_plans]
     lane0 = 0
-    for plan in kernel_plans:
+    for plan, meta in zip(kernel_plans, metas):
         e = flat[lane0 : lane0 + plan.n_lanes]
         lane0 += plan.n_lanes
-        for img, exc in wf.failures_from_err(e, plan.lane_meta.cpu().numpy()).items():
+        for img, exc in wf.failures_from_err(e, meta).items():
             failures.setdefault(img, exc)
     return failures
 

@@ -48,7 +48,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import bitstream
+from .. import bitstream, spans
 from .. import transform as T
 from ..config import DEFAULT_CONFIG, DecodeConfig
 from ..decoder import _entropy_decode
@@ -143,6 +143,7 @@ def _transform_by_qset(jpegs: Sequence, coeffs: Sequence[Sequence], config: Deco
                             lambda slot, img, ks=ks: emit(ks[slot], img), color=bitstream.color_space(j0))
 
 
+@spans.spanned(spans.LADDER)
 def decode_batch_on_device(datas: Sequence[bytes], config: DecodeConfig = DEFAULT_CONFIG,
                            device="cuda") -> BatchResult:
     """Decode a batch of JPEG byte strings on `device`: the entropy decode
@@ -333,6 +334,7 @@ def decode_batch_on_device(datas: Sequence[bytes], config: DecodeConfig = DEFAUL
     return BatchResult(images=images, errors=errors, stats=stats)
 
 
+@spans.spanned(spans.LADDER)
 def decode_batch(datas: Sequence[bytes], config: DecodeConfig = DEFAULT_CONFIG,
                  device=None, mesh=None) -> BatchResult:
     """Decode a batch of JPEG byte strings: parse and entropy decode on the

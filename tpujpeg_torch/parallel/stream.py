@@ -23,6 +23,12 @@ or marker-free segments, a plan-time data error) fall back at sync time
 to ``decode_batch_on_device``, then (where it raises a JpegError) to
 ``decode_batch``; a kernel or card failure raises. On a CPU device
 nothing is pinned and the kernels' plain versions run.
+
+Traced (``spans``: decided once, when the stream starts, on the thread
+that consumes it), each chunk is a unit whose id is its index: the main
+thread's ``stream.prep_wait``, ``stream.submit`` and ``stream.sync`` spans
+(``stream.fallback`` and ``card_wait`` inside the last), and the prep
+threads' ``parse`` and ``plan``.
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ from typing import Dict, Iterator, List, Optional, Sequence
 
 import torch
 
-from .. import bitstream
+from .. import bitstream, spans
 from ..config import DEFAULT_CONFIG, DecodeConfig
 from ..errors import JpegError, JpegUnsupportedError
 from ..kernels import wavefront as wf
@@ -70,8 +76,15 @@ class StreamChunk:
     layout: str = "nhwc"
 
 
-def _prep(datas: Sequence[bytes], members: List[int], pin: bool) -> _Unit:
-    """Worker-thread stage: parse + plan, fault-isolated."""
+def _prep(datas: Sequence[bytes], members: List[int], pin: bool, unit: Optional[int] = None,
+          parent: Optional[int] = None) -> _Unit:
+    """Worker-thread stage: parse + plan, fault-isolated; traced as chunk
+    `unit` (None: not traced) under the submitting thread's span `parent`."""
+    with spans.adopt(unit, parent):
+        return _prep_chunk(datas, members, pin)
+
+
+def _prep_chunk(datas: Sequence[bytes], members: List[int], pin: bool) -> _Unit:
     jpegs: List = []
     ok: List[int] = []
     failures: Dict[int, Exception] = {}
@@ -107,6 +120,7 @@ class _InFlight:
     done: Optional[torch.cuda.Event] = None  # passed once the unit's pinned plan is free
 
 
+@spans.spanned(spans.SUBMIT)
 def _submit(unit: _Unit, config: DecodeConfig, device: torch.device, packed: bool) -> _InFlight:
     """Main-thread stage: asynchronous copy and launches of the fused chain."""
     if unit.plan is None:
@@ -130,10 +144,11 @@ def _sync(flight: _InFlight, config: DecodeConfig, device: torch.device) -> Stre
             # The device ladder first; host entropy per image where it
             # refuses the chunk as a whole. A kernel or card failure
             # (RuntimeError) propagates: its work never moves to the host.
-            try:
-                res = decode_batch_on_device(unit.datas, config, device)
-            except JpegError:
-                res = decode_batch(unit.datas, config, device)
+            with spans.span(spans.FALLBACK):
+                try:
+                    res = decode_batch_on_device(unit.datas, config, device)
+                except JpegError:
+                    res = decode_batch(unit.datas, config, device)
             for k, i in enumerate(unit.members):
                 if k in res.errors:
                     failures[i] = res.errors[k]
@@ -143,7 +158,8 @@ def _sync(flight: _InFlight, config: DecodeConfig, device: torch.device) -> Stre
         return StreamChunk(members, images, failures, "fallback")
 
     if flight.done is not None:
-        flight.done.synchronize()
+        with spans.span(spans.CARD_WAIT):
+            flight.done.synchronize()
     local = wf.resolve_rgb_errors(flight.err, unit.plan)
     images = []
     for k, i in enumerate(unit.members):
@@ -175,25 +191,36 @@ def decode_stream(datas: Sequence[bytes], config: DecodeConfig = DEFAULT_CONFIG,
     pin = device.type == "cuda"
     n = len(datas)
     starts = list(range(0, n, chunk_size))
+    traced = spans.recording()
     with ThreadPoolExecutor(max_workers=prep_workers) as ex:
         prep_q: collections.deque = collections.deque()
         inflight: collections.deque = collections.deque()
-        next_chunk = 0
+        next_chunk = 0   # chunk index of the next prep
+        submitted = 0    # of prep_q[0]
+        synced = 0       # of inflight[0]
 
         def refill():
             nonlocal next_chunk
             while next_chunk < len(starts) and len(prep_q) < prep_workers + depth:
                 s = starts[next_chunk]
-                prep_q.append(ex.submit(_prep, datas, list(range(s, min(s + chunk_size, n))), pin))
+                prep_q.append(ex.submit(_prep, datas, list(range(s, min(s + chunk_size, n))), pin,
+                                        next_chunk if traced else None, spans.current()))
                 next_chunk += 1
 
         refill()
         while prep_q or inflight:
             while prep_q and len(inflight) < depth:
-                unit = prep_q.popleft().result()
-                refill()
-                inflight.append(_submit(unit, config, device, layout == "packed16"))
-            chunk = _sync(inflight.popleft(), config, device)
+                with spans.adopt(submitted if traced else None):
+                    with spans.span(spans.PREP_WAIT):
+                        unit = prep_q.popleft().result()
+                    refill()
+                    inflight.append(_submit(unit, config, device, layout == "packed16"))
+                submitted += 1
+            # The span also holds the release of the chunk's prep state (its
+            # parsed streams and pinned plan), which follows _sync's return.
+            with spans.adopt(synced if traced else None), spans.span(spans.SYNC):
+                chunk = _sync(inflight.popleft(), config, device)
+            synced += 1
             if config.to_numpy:
                 chunk.images = [im.cpu().numpy() if isinstance(im, torch.Tensor) else im
                                 for im in chunk.images]
