@@ -330,6 +330,58 @@ def test_norst_entries_on_card_match_pil_hashes(cuda, name):
     assert hashlib.sha256(raster.cpu().numpy().tobytes()).hexdigest() == want
 
 
+@pytest.mark.parametrize("subsampling", [1, 0], ids=["422", "444"])
+def test_card_split_on_marker_free_4k_frames(cuda, subsampling):
+    """A marker-free 3840x2160 q90 frame through decode() takes the card's
+    split (one wave of kernel A's lanes, 4-word rows) and gives PIL's bytes
+    and those of decode_norst_to_rgb at the reference's default split; a
+    traced decode() counts the plan's lanes and the wave once."""
+    pytest.importorskip("PIL", reason="tests/corpus.py encodes with PIL")
+    from corpus import make_jpeg, pil_decode
+
+    from tpujpeg_torch import spans
+
+    data = make_jpeg(3840, 2160, seed=3, quality=90, subsampling=subsampling)
+    jpeg = tpujpeg_torch.bitstream.parse(data)
+    scan = jpeg.scans[0]
+    total = wf._segment_mcus(jpeg.frame, scan)
+    default = wf.build_norst_plan(jpeg)
+    card = wf.card_norst_plan(jpeg, cuda)
+    wave = wf.card_wave_lanes(cuda, card.blk_tables)
+    props = torch.cuda.get_device_properties(cuda)
+    assert wave % (props.multi_processor_count * build.WF_THREADS) == 0 and wave > 0
+    assert card.norst_every == wf.card_every(total, wave, total, default.norst_every) < default.norst_every
+    assert card.n_words % wf.CARD_ROW_WORDS == 0 and card.n_words < default.n_words
+
+    want = pil_decode(data)
+    spans.drain()
+    before = build.LAUNCHES["wavefront_pixels"]
+    with spans.adopt(0):
+        out, stats = tpujpeg_torch.decode(data, device=cuda, return_stats=True)
+    recs = spans.drain()
+    assert stats.entropy_engine == "wavefront-fused-norst"
+    assert build.LAUNCHES["wavefront_pixels"] == before + 1
+    np.testing.assert_array_equal(out, want)
+    (dec,) = [r for r in recs if r.name == spans.DECODE]
+    lanes = [r.n for r in recs if r.name == spans.NORST_LANES]
+    waves = [r.n for r in recs if r.name == spans.NORST_WAVE]
+    assert (lanes, waves) == ([card.n_lanes], [wave])
+    assert all(r.unit == dec.unit for r in recs)
+    at_default = wf.decode_norst_to_rgb(jpeg, every=default.norst_every, device=cuda)
+    np.testing.assert_array_equal(at_default.cpu().numpy(), want)
+
+
+def test_card_split_on_norst_fixtures(cuda):
+    """The norst fixtures' card plans through kernel A equal its plain
+    version on the same plan, with no lane failing."""
+    for name in NORST:
+        jpeg = tpujpeg_torch.bitstream.parse(_read(name))
+        plan = wf.card_norst_plan(jpeg, cuda)
+        assert plan.n_words % wf.CARD_ROW_WORDS == 0
+        err = _kernel_and_plain([jpeg], cuda, plan)
+        assert not err.any(), name
+
+
 @pytest.mark.parametrize("per_image_q", [False, True])
 @pytest.mark.parametrize("with_dc", [False, True])
 @pytest.mark.parametrize("n,hb,wb", [(1, 1, 1), (3, 5, 7), (130, 1, 2), (2, 40, 33)])

@@ -319,3 +319,126 @@ def test_batch_ladder_takes_the_skeleton_rung():
     assert [s.entropy_engine for s in res.stats[:3]] == ["wavefront-skeleton"] * 2 + ["wavefront-fused"]
     for d, img in zip((norst, rows, good), res.images):
         np.testing.assert_array_equal(img, pil_decode(d))
+
+
+# -- the card's split (card_every, card_norst_plan): kernel A's wave ------------
+
+WAVE_H100 = 132 * 4 * 128   # SMs x resident CTAs of kernel A x threads per CTA
+
+
+@pytest.mark.parametrize("total,wave,ri,default,want", [
+    (129_600, WAVE_H100, 129_600, 18, 2), (64_800, WAVE_H100, 64_800, 12, 1),
+    (16_384, WAVE_H100, 16_384, 8, 1), (129_600, 1024, 129_600, 18, 18),
+    (129_600, 1024, 129_600, 10**6, 120), (1_049, 100, 10, 10**6, 10), (1_051, 100, 22, 10**6, 11)])
+def test_card_every_fills_one_wave(total, wave, ri, default, want):
+    """4K 4:4:4 (129,600 MCUs) takes two MCUs a lane on 132 SMs of 4 CTAs;
+    4K 4:2:2 (64,800) and 2048² 4:2:0 (16,384) one; elsewhere the MCUs
+    over the wave, to the nearest whole count, at most the scan's default,
+    snapped to a divisor of the restart interval."""
+    assert wf.card_every(total, wave, ri, default) == want
+
+
+def test_card_every_divides_the_interval_and_keeps_under_the_default():
+    for ri in (1, 2, 6, 7, 12, 48, 97, 192, 360):
+        for default in range(1, 40):
+            for total in (ri, 3 * ri, 1000 * ri):
+                for wave in (1, 5, 64, 1000, WAVE_H100):
+                    e = wf.card_every(total, wave, ri, wf._snap_divisor(default, ri))
+                    assert 1 <= e <= default and ri % e == 0, (ri, default, total, wave)
+
+
+@pytest.mark.parametrize("name", ["dri192_512", "rows_420", "420_512", "444_256"])
+@pytest.mark.parametrize("wave", [16, 64, 10**6])
+def test_card_plan_split_divides_the_interval(name, wave):
+    """On restart intervals over the row cap (dri192_512, rows_420) and
+    marker-free scans: the card split divides the interval, stays at or
+    under the reference's default, and is that default's plan at its own
+    `every`, rows cut to 4-word steps."""
+    jpeg = bitstream.parse(_data(name))
+    scan = jpeg.scans[0]
+    total = wf._segment_mcus(jpeg.frame, scan)
+    ri = scan.restart_interval or total
+    default = wf.build_norst_plan(jpeg).norst_every
+    card = wf.build_norst_plan(jpeg, wave=lambda blk: wave)
+    assert ri % card.norst_every == 0 and card.norst_every <= default
+    assert card.norst_every == wf.card_every(total, wave, ri, default)
+    ref = wf.build_norst_plan(jpeg, card.norst_every)
+    assert card.n_words % 4 == 0 and card.n_words <= ref.n_words
+    assert torch.equal(card.bits, ref.bits[:, : card.n_words])
+
+
+NARROW = [(n, e) for n in PLAN_CASES for e in (1, 3)]
+
+
+def _no_wave(blk):
+    raise AssertionError("an explicit every asks for no wave")
+
+
+@pytest.mark.parametrize("name,every", NARROW, ids=[f"{n}-every{e}" for n, e in NARROW])
+def test_narrow_rows_match_reference(name, every):
+    """A card plan's rows (4-word steps) at an explicit `every`: every field
+    the reference's plan's at that `every`, and each row the first W words
+    of the reference's row."""
+    data = _data(name)
+    want = rwp.build_norst_plan(ref_bitstream.parse(data), every)
+    got = wf.build_norst_plan(bitstream.parse(data), every, wave=_no_wave)
+    flat = _flat_ref(want)
+    W = got.n_words
+    assert W % 4 == 0 and W <= want.n_words and got.n_lanes == want.n_lanes
+    np.testing.assert_array_equal(got.bits.numpy(), flat["bits"][:, :W])
+    for field in ("seg_bits", "lane_m", "bit0", "dc0", "lane_meta", "qsets"):
+        np.testing.assert_array_equal(getattr(got, field).numpy(), flat[field], err_msg=field)
+    # W covers every lane's bits and the word after its last: the kernels
+    # never read past a sound lane's row.
+    assert int(((got.seg_bits + 31) // 32).max()) + 1 <= W
+    assert got.norst_every == want.norst_every and got.n_mcus == want.n_mcus
+    np.testing.assert_array_equal(got.seg_first, want.seg_first)
+    np.testing.assert_array_equal(got.lane_seg, want.lane_seg)
+
+
+@pytest.mark.parametrize("name", ["420_128", "422_168", "444_168", "gray_168", "dri128_444"])
+def test_card_plan_decodes_like_pil(name):
+    """A card plan (a small wave: many lanes, narrow rows) through kernel
+    A's plain version and the color stage gives PIL's bytes."""
+    data = _data(name)
+    jpeg = bitstream.parse(data)
+    plan = wf.build_norst_plan(jpeg, wave=lambda blk: 4096)
+    assert plan.n_words < 32
+    rgb, _layout, err = wf.decode_plan_to_rgb(plan, [jpeg], device="cpu")
+    assert not err.any()
+    np.testing.assert_array_equal(rgb[0].numpy(), pil_decode(data))
+
+
+def test_card_plan_counts_its_lanes_and_wave_in_the_unit():
+    """norst_lanes (the plan's lanes) and norst_wave (the wave it was cut
+    for) once per card plan, in the traced unit, under its plan span; a
+    plan of the reference's split counts nothing."""
+    from tpujpeg_torch import spans
+
+    jpeg = bitstream.parse(_data("420_512"))
+    seen = []
+    spans.drain()
+    with spans.adopt(12):
+        plan = wf.build_norst_plan(jpeg, wave=lambda blk: seen.append(blk) or 100)
+        wf.build_norst_plan(jpeg)
+        wf.build_norst_plan(jpeg, 3, wave=lambda blk: 100)
+    recs = spans.drain()
+    counts = {r.name: r for r in recs if r.id is None}
+    assert set(counts) == {spans.NORST_LANES, spans.NORST_WAVE}
+    assert (counts[spans.NORST_LANES].n, counts[spans.NORST_WAVE].n) == (plan.n_lanes, 100)
+    (first_plan,) = [r for r in recs if r.name == spans.PLAN][:1]
+    assert all(r.unit == 12 and r.parent == first_plan.id for r in counts.values())
+    assert seen == [plan.blk_tables]
+
+
+def test_cpu_entries_keep_the_reference_split(monkeypatch):
+    """On the CPU, decode_norst_to_rgb and decode() never take the card's
+    split; neither does an explicit `every`."""
+    def refuse(*a, **k):
+        raise AssertionError("card split on the CPU")
+
+    monkeypatch.setattr(wf, "card_norst_plan", refuse)
+    data = _data("422_168")
+    np.testing.assert_array_equal(wf.decode_norst_to_rgb(bitstream.parse(data), device="cpu").numpy(),
+                                  pil_decode(data))
+    np.testing.assert_array_equal(tpujpeg_torch.decode(data, device="cpu"), pil_decode(data))

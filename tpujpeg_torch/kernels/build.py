@@ -15,13 +15,15 @@ memory, stack and spill bytes per kernel) is parsed and saved beside the library
 (``ptxas_report``). Module state is the library handle and
 ``LAUNCHES``, the per-kernel launch counters the wrappers bump after
 each launch through ``launched``, which also counts the launch in the
-traced unit (``spans.count``).
+traced unit (``spans.count``), and the cache of kernel A/2 occupancies
+per device and launch size (``wavefront_occupancy``).
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import glob
 import hashlib
 import json
@@ -114,6 +116,7 @@ _SIGNATURES = {
         _I, _I, _I, _P, _P,                  # N, H, W, out, stream
     ],
 }
+_SIGNATURES["tj_wavefront_occupancy"] = [_I, _I, _I, _I, _I, _P, _P]  # pixels, B, nq, n_planes, n_lut, *ctas, *smem
 _SIGNATURES["tj_prog_ac_refine"] = _SIGNATURES["tj_prog_ac_first"]
 _SIGNATURES["tj_upsample_color_h2v2_planar"] = _SIGNATURES["tj_upsample_color_h2v2"]
 _SIGNATURES["tj_upsample_color_h2v1_planar"] = _SIGNATURES["tj_upsample_color_h2v1"]
@@ -271,6 +274,25 @@ def call(device: torch.device, entry: str, *args) -> int:
     fail. Returns the entry's CUDA error code."""
     with torch.cuda.device(device):
         return getattr(get_lib(), entry)(*args, stream_of(device))
+
+
+WF_THREADS = 128   # threads per CTA of kernels A and 2 (TJ_WF_THREADS)
+
+
+@functools.lru_cache(maxsize=None)
+def wavefront_occupancy(device: torch.device, pixels: bool, B: int, nq: int, n_planes: int,
+                        n_lut: int) -> int:
+    """Resident CTAs per SM of kernel A (`pixels`) or 2 on CUDA `device` at
+    the dynamic shared memory a launch with B blocks per MCU, nq quantizer
+    sets, n_planes planes and n_lut table sets asks for
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); cached per device
+    and sizes."""
+    ctas, smem = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = get_lib().tj_wavefront_occupancy(int(pixels), B, nq, n_planes, n_lut,
+                                              ctypes.addressof(ctas), ctypes.addressof(smem))
+    raise_on_error(rc, "tj_wavefront_occupancy")
+    return ctas.value
 
 
 def raise_on_error(rc: int, name: str) -> None:

@@ -33,12 +33,19 @@ their raster positions, so there is no assembly pass. The planners still
 keep the reference's scope (row width rule, ``MAX_WORDS``, the norst
 split's default ``every``, one table set per batch; ``MAX_QSETS`` in the
 fused entry) so that both decoders accept and reject the same streams.
+One difference is kept: on a CUDA device ``decode_norst_to_rgb`` splits a
+scan into one wave of kernel A's lanes (``card_norst_plan``), with rows in
+4-word steps, since a lane's serial chain, not the card's bandwidth, bounds
+the kernel there; it starts at a smaller ``every`` under the same halving
+cap, so it may accept a stream whose lanes the reference's split gives up
+on, and decodes it byte-exact.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+import functools
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -498,8 +505,41 @@ def _scan_split_host(jpeg, scan, every: int):
     return dest, offs_flat, np.asarray(seg_first, np.int64), np.concatenate(dcs_all)
 
 
+CARD_ROW_WORDS = 4   # a card plan's row step, 16 bytes; the reference's 32 words are the TPU's tile
+
+
+def _snap_divisor(e: int, ri: int) -> int:
+    """The largest divisor of the restart interval `ri` that is at most
+    `e` (and at least 1)."""
+    e = max(1, min(e, ri))
+    while ri % e:
+        e -= 1
+    return e
+
+
+def card_every(total_mcus: int, wave_lanes: int, ri: int, default: int) -> int:
+    """MCUs per norst lane on a card: as many lanes as one wave of kernel A
+    holds (`wave_lanes`), to the nearest whole MCU count, snapped to a
+    divisor of the restart interval `ri` and never above `default`, the
+    reference's split of the scan. A lane's serial chain, not the card's
+    bandwidth, bounds kernel A on a marker-free scan, so the wave is what
+    sets the lane count."""
+    return _snap_divisor(min(max(1, round(total_mcus / max(1, wave_lanes))), default), ri)
+
+
+def card_wave_lanes(device, blk_tables) -> int:
+    """Lanes in one wave of kernel A on CUDA `device` for a one-image plan
+    with these per-block tables: SMs x resident CTAs per SM at the shared
+    memory the launch asks for x threads per CTA."""
+    device = torch.device(device)
+    ctas = build.wavefront_occupancy(device, True, len(blk_tables), 1,
+                                     len({ci for ci, _d, _a in blk_tables}),
+                                     max(table_sets(blk_tables)) + 1)
+    return torch.cuda.get_device_properties(device).multi_processor_count * ctas * build.WF_THREADS
+
+
 @spans.spanned(spans.PLAN)
-def build_norst_plan(jpeg, every: int = 0) -> LanePlan:
+def build_norst_plan(jpeg, every: int = 0, wave: Optional[Callable[[Tuple], int]] = None) -> LanePlan:
     """Lane plan of one parsed baseline scan cut at skeleton-scan bit
     offsets: for marker-free streams (the whole scan one serial chain)
     and for restart intervals whose segments exceed the row cap. `every`
@@ -510,6 +550,13 @@ def build_norst_plan(jpeg, every: int = 0) -> LanePlan:
     from the one holding its first bit on, 0xFF past the stream's end)
     with its DC predictors primed from the skeleton scan (``dc0``, reset
     at markers), so kernels A and 2 decode true DCs with no fixup pass.
+    Rows are as wide as the longest lane needs, in 32-word steps as the
+    reference's. `wave` makes a plan for a card (``card_norst_plan``): given
+    the per-block tables, it returns the lanes one wave of kernel A holds
+    there. Its rows go in 4-word steps (the fields stay the reference's
+    plan's at the same `every`, each row its first words); `every` 0 takes
+    ``card_every``'s split, and the plan counts its lanes and that wave
+    (``norst_lanes``, ``norst_wave``) in the traced unit.
     Raises as the reference's planner: JpegUnsupportedError outside its
     scope, JpegHuffmanError or JpegTruncatedError from the walk."""
     frame = jpeg.frame
@@ -524,37 +571,38 @@ def build_norst_plan(jpeg, every: int = 0) -> LanePlan:
     if total_mcus <= 0:
         raise JpegUnsupportedError("empty scan")
     ri = scan.restart_interval or total_mcus
-
-    def snap_divisor(e: int) -> int:
-        e = max(1, min(e, ri))
-        while ri % e:
-            e -= 1
-        return e
-
+    blk_tables = wave_lanes = None
     if every <= 0:
         avg_bits = max(1, len(scan.data) * 8 // total_mcus)
-        every = max(1, (MAX_WORDS * 32 // 2) // avg_bits)
-    every = snap_divisor(every)
+        every = _snap_divisor(max(1, (MAX_WORDS * 32 // 2) // avg_bits), ri)
+        if wave is not None:
+            _scan, blk_tables = _image_tables(jpeg, CanonTable.from_spec)
+            wave_lanes = wave(blk_tables)
+            every = card_every(total_mcus, wave_lanes, ri, every)
+    every = _snap_divisor(every, ri)
+    row_step = 32 if wave is None else CARD_ROW_WORDS
     W = MAX_WORDS + 1
     for _ in range(6):
         dest, offs, seg_first, dcs = _scan_split_host(jpeg, scan, every)
         start_words = offs[:-1] >> 5
         end_rel = offs[1:] - (start_words << 5)
         W = -(-int(end_rel.max()) // 32) + 1
-        W = min(-(-W // 32) * 32, MAX_WORDS + 32)
+        W = min(-(-W // row_step) * row_step, MAX_WORDS + 32)
         if W <= MAX_WORDS or every == 1:
             break
-        every = snap_divisor(every // 2)
+        every = _snap_divisor(every // 2, ri)
     if W > MAX_WORDS:
         raise JpegUnsupportedError("skeleton split: a lane exceeds the row cap")
 
     L = len(offs) - 1
-    # Row l is dest[4 * start_words[l]:][:4 W], 0xFF past the end: one
-    # gather of sliding-window views.
-    row_bytes = W * 4
-    dest_pad = np.concatenate([dest, np.full(row_bytes + 8, 0xFF, np.uint8)])
-    windows = np.lib.stride_tricks.sliding_window_view(dest_pad, row_bytes)
-    bits = np.ascontiguousarray(windows[start_words * 4]).view(">u4").astype(np.uint32).view(np.int32)
+    # Row l is words[start_words[l]:][:W], the stream read as big-endian
+    # words (swapped once), 0xFF past its end: one gather of sliding-window
+    # views.
+    n_words = -(-len(dest) // 4) + W + 1
+    buf = np.full(n_words * 4, 0xFF, np.uint8)
+    buf[: len(dest)] = dest
+    words = buf.view(">u4").astype(np.uint32).view(np.int32)
+    bits = np.lib.stride_tricks.sliding_window_view(words, W)[start_words]
     dc0 = np.zeros((L, 4), np.int32)
     for p, ci in enumerate(scan.comp_indices if scan.interleaved else scan.comp_indices[:1]):
         dc0[:, ci] = dcs[:, p]
@@ -562,14 +610,18 @@ def build_norst_plan(jpeg, every: int = 0) -> LanePlan:
     nm = np.minimum(every, total_mcus - fm).astype(np.int32)
     meta = np.stack([np.zeros(L, np.int32), fm.astype(np.int32), nm], axis=1)
 
-    _scan, blk_tables = _image_tables(jpeg, CanonTable.from_spec)
+    if blk_tables is None:
+        _scan, blk_tables = _image_tables(jpeg, CanonTable.from_spec)
+    if wave_lanes is not None:
+        spans.count(spans.NORST_LANES, L)
+        spans.count(spans.NORST_WAVE, wave_lanes)
     qset = np.stack([jpeg.qtables[frame.components[ci].tq] for ci, _d, _a in blk_tables])
     tables_t, huffval_t = _table_tensors(blk_tables)
     return LanePlan(
         bits=torch.from_numpy(bits),
         seg_bits=torch.from_numpy(end_rel.astype(np.int32)),
         lane_m=torch.from_numpy(nm),
-        lane_qset=torch.zeros(L, dtype=torch.int32),
+        lane_qset=torch.from_numpy(np.zeros(L, np.int32)),
         lane_meta=torch.from_numpy(meta),
         tables=tables_t,
         huffval=huffval_t,
@@ -584,6 +636,12 @@ def build_norst_plan(jpeg, every: int = 0) -> LanePlan:
         lane_seg=fm // ri,
         seg_first=seg_first,
     )
+
+
+def card_norst_plan(jpeg, device) -> LanePlan:
+    """``build_norst_plan`` with the split and rows of CUDA `device`: one
+    wave of kernel A's lanes (``card_every``), rows in 4-word steps."""
+    return build_norst_plan(jpeg, wave=functools.partial(card_wave_lanes, device))
 
 
 # ---------------------------------------------------------------------------
@@ -1057,11 +1115,17 @@ def decode_norst_to_rgb(jpeg, config: DecodeConfig = DEFAULT_CONFIG, every: int 
                         packed: bool = False, device="cuda"):
     """Fused decode of one baseline scan the restart planner refuses on
     `device`: ``build_norst_plan``, then kernel A and the color stage
-    (``decode_plan_to_rgb``). Returns uint8 [H, W, 3] (or [H, W] gray) on
-    `device`, or with `packed` where ``pipeline.packed_layout_applies``
-    the planar uint16 [3, H, W/2] whose bytes are the raster. Raises the
-    lowest failing lane's error."""
-    plan = build_norst_plan(jpeg, every)
+    (``decode_plan_to_rgb``). On a CUDA device `every` 0 takes the card's
+    split (``card_norst_plan``); elsewhere, or with `every` given, the
+    reference's. Returns uint8 [H, W, 3] (or [H, W] gray) on `device`, or
+    with `packed` where ``pipeline.packed_layout_applies`` the planar
+    uint16 [3, H, W/2] whose bytes are the raster. Raises the lowest
+    failing lane's error."""
+    device = torch.device(device)
+    if every <= 0 and device.type == "cuda":
+        plan = card_norst_plan(jpeg, device)
+    else:
+        plan = build_norst_plan(jpeg, every)
     rgb, _layout, err = decode_plan_to_rgb(plan, [jpeg], config, device, packed)
     failures = resolve_rgb_errors(err, plan)
     if failures:

@@ -33,7 +33,9 @@ Span names, from the entries down: ``tpujpeg_torch.decode`` (one per
 (``decode_batch_on_device``, ``decode_batch``), ``tpujpeg_torch.parse``,
 ``tpujpeg_torch.plan`` (the planners), ``tpujpeg_torch.copy_in`` (plans and
 masks copied to the device) and ``tpujpeg_torch.card_wait`` (every host
-block on the card).
+block on the card). Counters: ``launch`` (every kernel launch), and for each
+marker-free plan split for a card ``norst_lanes`` (its lanes) and
+``norst_wave`` (the lanes one wave of kernel A holds there).
 """
 
 from __future__ import annotations
@@ -64,6 +66,8 @@ PLAN = "tpujpeg_torch.plan"
 COPY_IN = "tpujpeg_torch.copy_in"
 CARD_WAIT = "tpujpeg_torch.card_wait"
 LAUNCH = "launch"
+NORST_LANES = "norst_lanes"
+NORST_WAVE = "norst_wave"
 
 MAXLEN = 1 << 18   # records kept: a traced 10 s window writes tens of thousands
 
