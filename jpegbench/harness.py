@@ -8,7 +8,7 @@ in a file of its own:
 
 - ``BENCHMARK.json`` (the checkout's root) names the cells and metrics;
 - ``configs/<config>.json``: the images of a deployment (size, quality,
-  sampling, restart interval, pool);
+  sampling, restart interval, pool), one size or a mix of classes;
 - ``traffic/<traffic>.json``: a mix's parameters, with ``loop`` naming
   the module ``traffic/<loop>.py`` that drives it (``warm(run)`` and
   ``window(run, seconds)``);
@@ -21,6 +21,7 @@ import this module to make the pool and to run the reference.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import hashlib
 import importlib.util
@@ -126,15 +127,42 @@ class Item:
     sampling: str
 
 
+def image_cycle(config: dict) -> List[tuple]:
+    """The (width, height) the pool's images take in turn: the
+    configuration's one ``width``/``height``, or its ``images``, a list of
+    classes ``{"width", "height", "count"}`` each listed ``count`` times in
+    the file's order. Every class takes the configuration's ``quality``."""
+    if ("images" in config) == ("width" in config or "height" in config):
+        raise ValueError(f"configuration {config.get('name')!r}: give either width and height, or images")
+    if "images" not in config:
+        return [(config["width"], config["height"])]
+    cycle = []
+    for c in config["images"]:
+        if set(c) != {"width", "height", "count"}:
+            raise ValueError(f"configuration {config.get('name')!r}: a class has width, height and count alone")
+        if not (isinstance(c["count"], int) and c["count"] >= 1):
+            raise ValueError(f"configuration {config.get('name')!r}: a class's count must be a whole number >= 1")
+        cycle += [(c["width"], c["height"])] * c["count"]
+    if not cycle:
+        raise ValueError(f"configuration {config.get('name')!r}: images lists no class")
+    return cycle
+
+
 def pool_specs(config: dict, traffic: dict, seed: int) -> List[dict]:
-    """The pool's images: sampling by turns over the configuration's list,
-    so that every seed makes the same mix; pixels from (seed, index)."""
+    """The pool's images: sizes by turns over the configuration's cycle
+    (``image_cycle``), and each size's sampling by turns over the list in
+    the order that size comes, so that every seed makes the same mix and
+    every size meets every sampling; pixels from (seed, index)."""
     enc = traffic["encoding"]
+    cycle = image_cycle(config)
+    seen = collections.Counter()
     out = []
     for i in range(config["pool"]):
-        sampling = config["sampling"][i % len(config["sampling"])]
+        w, h = cycle[i % len(cycle)]
+        sampling = config["sampling"][seen[w, h] % len(config["sampling"])]
+        seen[w, h] += 1
         image_seed = int(np.random.SeedSequence([seed % 2**63, i]).generate_state(1, np.uint64)[0])
-        out.append(dict(w=config["width"], h=config["height"], seed=image_seed, quality=config["quality"],
+        out.append(dict(w=w, h=h, seed=image_seed, quality=config["quality"],
                         sampling=sampling, progressive=bool(enc.get("progressive")),
                         restart_blocks=config["restart_mcus"] if enc.get("restarts") else 0,
                         kind=config.get("image_kind", "photo")))

@@ -2,8 +2,9 @@
 a sound run comes out correct, and a run whose timed path is broken
 underneath comes out incorrect, for each fault a decode cell can have: an
 answer altered where it is produced, half of each batch left out, and a
-step that returns its buffer unchanged (the decode never written). A
-one-chip decoder has no exchange between chips to leave out."""
+step that returns its buffer unchanged (the decode never written); on a
+pool of one size and on a pool of mixed sizes added as files. A one-chip
+decoder has no exchange between chips to leave out."""
 
 import json
 
@@ -12,7 +13,7 @@ import torch
 
 import tpujpeg_torch
 from jpegbench import run as R
-from jpegbench.tests.tiny import tiny_root
+from jpegbench.tests.tiny import MIXED_CELL, add_mixed_cell, tiny_root
 
 
 def _altered(image):
@@ -57,14 +58,22 @@ def _fault_decode(kind):
 ARGS = ["--seed", "3000000019", "--seconds", "1", "--trace", "0"]
 
 
-CELLS = {"stream_2048_420": ("decode_stream", _fault_stream), "uploads_4k_rst": ("decode", _fault_decode)}
+CELLS = {"stream_2048_420": ("decode_stream", _fault_stream), "uploads_4k_rst": ("decode", _fault_decode),
+         MIXED_CELL: ("decode_stream", _fault_stream)}
+
+
+def _root(tmp_path, cell):
+    root = tiny_root(tmp_path)
+    if cell == MIXED_CELL:
+        add_mixed_cell(root)
+    return root
 
 
 @pytest.mark.parametrize("fault", ["altered", "half_left_out", "unchanged"])
 @pytest.mark.parametrize("cell", sorted(CELLS))
 def test_a_broken_timed_path_is_judged_incorrect(tmp_path, monkeypatch, cell, fault):
     args = R.parse_args(["--workload", cell] + ARGS)
-    run = R.setup(args, "cpu", False, tiny_root(tmp_path))
+    run = R.setup(args, "cpu", False, _root(tmp_path, cell))
     name, make = CELLS[cell]
     monkeypatch.setattr(tpujpeg_torch, name, make(fault))
     result = R.measure(run, args)
@@ -74,7 +83,7 @@ def test_a_broken_timed_path_is_judged_incorrect(tmp_path, monkeypatch, cell, fa
 
 @pytest.mark.parametrize("cell", sorted(CELLS))
 def test_a_sound_run_is_judged_correct_and_prints_its_checks_last(tmp_path, capsys, cell):
-    rc = R.main(["--workload", cell] + ARGS, device="cpu", require_cuda=False, root=tiny_root(tmp_path))
+    rc = R.main(["--workload", cell] + ARGS, device="cpu", require_cuda=False, root=_root(tmp_path, cell))
     captured = capsys.readouterr()
     assert rc == 0
     result = json.loads(captured.out.strip().splitlines()[-1])

@@ -77,6 +77,53 @@ def test_a_cell_and_a_metric_added_as_files_are_found(tmp_path):
     assert after == before
 
 
+def _snapshot(root):
+    return {os.path.relpath(os.path.join(dp, p), root): open(os.path.join(dp, p), "rb").read()
+            for dp, _d, fs in os.walk(root) for p in fs if "__pycache__" not in dp}
+
+
+def test_a_mixed_size_cell_added_as_files_runs_correct(tmp_path, monkeypatch, capsys):
+    from collections import Counter
+
+    import tpujpeg_torch.kernels.wavefront as wf
+    from jpegbench import run as R
+    from jpegbench.reference import bitstream
+    from jpegbench.tests.tiny import add_mixed_cell, tiny_root
+
+    root = tiny_root(tmp_path)
+    before = _snapshot(root)
+    bench_before = json.loads(before.pop("BENCHMARK.json"))
+    cell = add_mixed_cell(root)
+    bench = H.load_benchmark(root)
+    after = _snapshot(root)
+    assert {p: after.get(p) for p in before} == before
+    for key in ("configs", "workloads", "end_to_end", "per_layer"):
+        assert bench[key][:len(bench_before[key])] == bench_before[key]
+    # The batch ladder's per-image skeleton rung, spied on where it is called.
+    skeleton = []
+    real = wf.decode_norst_to_rgb
+    monkeypatch.setattr(wf, "decode_norst_to_rgb",
+                        lambda jpeg, *a, **k: skeleton.append(jpeg.frame.width) or real(jpeg, *a, **k))
+    seed = 3000000019
+    rc = R.main(["--workload", cell, "--seed", str(seed), "--seconds", "1", "--trace", "0"],
+                device="cpu", require_cuda=False, root=root)
+    assert rc == 0
+    result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert result["correct"] is True and result["attempted"] > 0 and result["failed"] == 0
+    # The pool, read back with the reference parser: every class in its count,
+    # and a marker-free scan over the fused planner's cap.
+    run = H.Run(bench, cell, seed=seed, device="cpu", root=root)
+    pool = H.CachedPool(run.pool_path()).get()
+    parsed = [bitstream.parse(it.data) for it in pool]
+    assert Counter((j.frame.width, j.frame.height) for j in parsed) == Counter(
+        {(c["width"], c["height"]): c["count"] for c in run.config["images"]})
+    assert [it.mp for it in pool] == [j.frame.width * j.frame.height / 1e6 for j in parsed]
+    words = [len(j.scans[0].data) // 4 + 2 for j in parsed]
+    assert all(len(j.scans[0].rst_offsets) == 0 for j in parsed)
+    assert max(words) > wf.MAX_WORDS > min(words)
+    assert {j.frame.width for j, n in zip(parsed, words) if n > wf.MAX_WORDS} <= set(skeleton)
+
+
 def _imports(path):
     tree = ast.parse(open(path).read(), path)
     names = set()
