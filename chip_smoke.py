@@ -978,7 +978,7 @@ def main() -> int:
     t0 = time.perf_counter()
     units = [stream_mod._prep(sdatas, m, True) for m in chunks]
     t_prep = time.perf_counter() - t0
-    dev_plans = [(u.plan.to(dev), u.jpegs) for u in units]
+    dev_plans = [(b.plan.to(dev), b.jpegs) for u in units for b in u.buckets]
     # The same stage split: parse, then the plan into pageable and into
     # pinned memory (one thread, 4 chunks).
     t0 = time.perf_counter()

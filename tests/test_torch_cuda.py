@@ -931,6 +931,33 @@ def test_stream_on_card_equals_batch_on_device(cuda, layout):
         assert torch.equal(img, ref.images[i])
 
 
+@pytest.mark.parametrize("layout", ["nhwc", "packed16"])
+def test_mixed_chunks_on_card_launch_kernel_a_once_per_bucket(cuda, layout):
+    """decode_stream over chunks of mixed geometry stays on the fused path:
+    one kernel-A launch per geometry bucket, every image equal to
+    decode_batch_on_device's. The first chunk (4:2:0 2048^2 twice and
+    4:2:2) takes packed16 in both buckets; the second holds the odd-width
+    fixture, so it is "nhwc" in both."""
+    names = ["420_2048", "422", "420_2048", "420_odd", "422"]
+    datas = [_read(n) for n in names]
+    cfg = tpujpeg_torch.DecodeConfig(to_numpy=False)
+    ref = tpujpeg_torch.decode_batch_on_device(datas, cfg, device=cuda)
+    assert not ref.errors
+    before = build.LAUNCHES["wavefront_pixels"]
+    chunks = list(tpujpeg_torch.decode_stream(datas, cfg, chunk_size=3, layout=layout, device=cuda))
+    assert build.LAUNCHES["wavefront_pixels"] - before == 4
+    assert [(ch.engine, ch.layout, ch.members) for ch in chunks] == [
+        ("wavefront-fused", layout, [0, 1, 2]), ("wavefront-fused", "nhwc", [3, 4])]
+    for ch in chunks:
+        assert not ch.failures
+        for k, i in enumerate(ch.members):
+            img = ch.images[k]
+            if ch.layout == "packed16":
+                h, w = img.shape[1], img.shape[2] * 2
+                img = img.view(torch.uint8).view(3, h, w).permute(1, 2, 0)
+            assert torch.equal(img, ref.images[i])
+
+
 def test_batch_entries_on_card_match_pil_hashes(cuda):
     """decode_batch_on_device and decode_batch on every fixture but the
     2048^2 ones, a corrupted member and bytes that are no JPEG."""

@@ -1,7 +1,8 @@
 """The port's spans and counters (tpujpeg_torch.spans) on device="cpu":
 off without a profiler, one unit per stream chunk on the main thread and
-the prep threads, the progressive fallback's ladder, decode()'s nesting,
-and the log's clock against the profiler's.
+the prep threads, one plan span per geometry bucket of a fused chunk, the
+progressive fallback's ladder, decode()'s nesting, and the log's clock
+against the profiler's.
 
 The images are 16x16 (corpus.make_jpeg): the kernels' plain versions take
 about a second for each 48x48 image on the CPU, and a profile of them
@@ -70,6 +71,22 @@ def test_traced_fused_stream_gives_each_chunk_a_unit_on_both_sides():
     copies = [r for r in recs if r.name == spans.COPY_IN]
     assert copies and all(submits[r.parent] == r.unit for r in copies)
     assert all(r.start_ns <= r.end_ns for r in recs)
+
+
+def test_traced_mixed_stream_plans_each_bucket_once_in_its_chunks_unit():
+    """A fused chunk of mixed geometry records one ``plan`` span per
+    geometry bucket, on its prep thread, in its own unit; untraced,
+    nothing."""
+    a, b = _fused(1)[0], make_jpeg(32, 16, seed=4, subsampling=2, quality=85, restart_blocks=8)
+    datas = [a, b, a, a, b]
+    main = threading.get_ident()
+    chunks, recs, _prof = _traced(lambda: list(tpujpeg_torch.decode_stream(datas, chunk_size=2, **CPU)))
+    assert [c.engine for c in chunks] == ["wavefront-fused"] * 3
+    plans = [r for r in recs if r.name == spans.PLAN]
+    assert collections.Counter(r.unit for r in plans) == {0: 2, 1: 1, 2: 1}
+    assert all(r.thread != main and not r.mirrored for r in plans)
+    list(tpujpeg_torch.decode_stream(datas, chunk_size=2, **CPU))
+    assert spans.drain() == []
 
 
 def test_traced_progressive_chunk_runs_the_ladder_under_its_chunk(monkeypatch):

@@ -2,15 +2,20 @@
 device="cpu", where the kernels' plain versions run: the eight cases of
 tests/test_stream.py with the same corpus calls, byte for byte against
 PIL; identical outputs whatever the depth and the number of prep
-workers; config.to_numpy; and the reference's return forms of
-decode_all_scans_to_rgb_batch (packed, defer_errors, layout) and
+workers; config.to_numpy; chunks of mixed geometry, one fused plan per
+geometry bucket, against PIL and the benchmark's plain reference
+(jpegbench.reference, plain torch and numpy); and the reference's return
+forms of decode_all_scans_to_rgb_batch (packed, defer_errors, layout) and
 decode_batch_to_rgb (defer_errors). Tolerance 0."""
+
+import functools
 
 import numpy as np
 import pytest
 import torch
 
 from corpus import make_jpeg, pil_decode
+from test_torch_cuda import zero_payload
 
 import tpujpeg
 from tpujpeg import bitstream as ref_bitstream
@@ -18,6 +23,7 @@ from tpujpeg.kernels import wavefront_pallas as ref_wp
 from tpujpeg.kernels import wavefront_prog as ref_prog
 
 import tpujpeg_torch
+from jpegbench.reference import decode as plain_ref
 from tpujpeg_torch import DecodeConfig, bitstream
 from tpujpeg_torch.kernels import wavefront as wf
 from tpujpeg_torch.kernels import wavefront_prog as prog
@@ -205,3 +211,74 @@ def test_decode_batch_to_rgb_defer_errors_returns_what_the_reference_returns():
     assert {i: type(e).__name__ for i, e in failures.items()} == \
         {i: type(e).__name__ for i, e in ref_wp.resolve_rgb_errors(ref_err, ref_plan).items()}
     assert set(failures) == {1}
+
+
+# --- chunks of mixed geometry: one fused plan per geometry bucket
+
+# A seeded mixed pool: 4:2:0 restart files at several even sizes, an
+# odd-size 4:2:0 file (no packed16) and a 4:2:2 file.
+MIXED = [make_jpeg(w, h, seed=s, subsampling=2, quality=85, restart_blocks=4)
+         for s, (w, h) in enumerate([(32, 24), (48, 32), (32, 24), (64, 48), (48, 32), (32, 24)])] + [
+    make_jpeg(35, 27, seed=7, subsampling=2, quality=85, restart_blocks=4),
+    make_jpeg(48, 32, seed=8, subsampling=1, quality=85, restart_blocks=4),
+]
+ODD = 6
+
+
+@functools.lru_cache(maxsize=None)
+def _mixed_want(i: int) -> np.ndarray:
+    """PIL's decode of MIXED[i], held equal to the plain reference's."""
+    want = pil_decode(MIXED[i])
+    plain = plain_ref.rgb(MIXED[i], plain_ref.coefficients(MIXED[i]), "cpu")
+    np.testing.assert_array_equal(plain.numpy(), want)
+    return want
+
+
+def _as_hwc(image, layout):
+    if layout == "packed16":
+        return np.moveaxis(image.view(np.uint8).reshape(image.shape[0], image.shape[1], -1), 0, 2)
+    return image
+
+
+@pytest.mark.parametrize("chunk_size", [3, 8])
+@pytest.mark.parametrize("depth,workers", [(1, 1), (2, 3)])
+def test_mixed_chunks_stay_fused_bit_exact_and_in_order(chunk_size, depth, workers):
+    """Every chunk is planned as geometry buckets and stays on the fused
+    path; members come back in order, each equal to PIL and to the plain
+    reference; packed16 applies to a chunk whose buckets all take it (even
+    4:2:0 and 4:2:2 sizes), and a chunk with the odd-width file is "nhwc"
+    throughout."""
+    chunks = list(tpujpeg_torch.decode_stream(MIXED, chunk_size=chunk_size, depth=depth, prep_workers=workers,
+                                              layout="packed16", **CPU))
+    assert [i for ch in chunks for i in ch.members] == list(range(len(MIXED)))
+    for ch in chunks:
+        assert ch.engine == "wavefront-fused" and not ch.failures
+        assert ch.layout == ("nhwc" if ODD in ch.members else "packed16")
+        for k, i in enumerate(ch.members):
+            np.testing.assert_array_equal(_as_hwc(ch.images[k], ch.layout), _mixed_want(i))
+
+
+def test_a_corrupt_member_of_a_bucket_fails_only_its_own_slot():
+    datas = [MIXED[0], MIXED[1], zero_payload(MIXED[2]), MIXED[5], MIXED[4]]
+    (ch,) = tpujpeg_torch.decode_stream(datas, chunk_size=5, **CPU)
+    assert ch.engine == "wavefront-fused" and ch.members == [0, 1, 2, 3, 4]
+    assert set(ch.failures) == {2} and isinstance(ch.failures[2], tpujpeg_torch.JpegError)
+    assert ch.images[2] is None
+    for k, m in ((0, 0), (1, 1), (3, 5), (4, 4)):
+        np.testing.assert_array_equal(ch.images[k], _mixed_want(m))
+
+
+@pytest.mark.parametrize("odd_one", ["progressive", "marker_free"])
+def test_a_mixed_chunk_with_a_member_the_planner_refuses_falls_back_whole(odd_one):
+    """A progressive member, or a marker-free one whose segment overruns
+    the fused planner's cap, sends the whole mixed chunk to the fallback,
+    bit-exact."""
+    extra = (make_jpeg(48, 32, seed=9, subsampling=2, progressive=True) if odd_one == "progressive"
+             else make_jpeg(128, 96, seed=1, subsampling=2))
+    if odd_one == "marker_free":
+        assert len(bitstream.parse(extra).scans[0].data) // 4 + 2 > wf.MAX_WORDS
+    datas = [MIXED[0], MIXED[3], extra, MIXED[5]]
+    (ch,) = tpujpeg_torch.decode_stream(datas, chunk_size=4, layout="packed16", **CPU)
+    assert ch.engine == "fallback" and ch.layout == "nhwc" and not ch.failures
+    for k, d in enumerate(datas):
+        np.testing.assert_array_equal(ch.images[k], pil_decode(d))

@@ -295,7 +295,7 @@ def build_block_plan(jpegs: Sequence, pin_memory: bool = False) -> LanePlan:
             )
         key = (frame.height, frame.width, tuple((c.h, c.v) for c in frame.components))
         if key != key0:
-            raise JpegUnsupportedError("mixed geometry in one batch: batch buckets arrive later")
+            raise JpegUnsupportedError("mixed geometry in one batch: callers bucket the images by geometry")
         scan, tables_t = _image_tables(jpeg, table)
         if blk_tables is None:
             blk_tables = tables_t

@@ -3,23 +3,30 @@ device's decode of earlier chunks.
 
 Port of ``tpujpeg/parallel/stream.py``. The stages per chunk of images:
 
-  prep   (worker threads)  parse + ``build_block_plan`` (the native row
-                           packer releases the interpreter lock; parsing
-                           does not); on a CUDA device the planner packs
-                           the rows straight into pinned host memory
-  submit (main thread)     copy the plan to the card without blocking and
-                           launch kernel A and the color kernel on the
-                           current stream, then record a CUDA event; the
-                           in-flight record keeps the pinned plan alive
-                           until that event has passed
-  sync   (main thread)     wait for the event and read back the per-lane
-                           error vector (``resolve_rgb_errors``)
+  prep   (worker threads)  parse, group the images into geometry buckets
+                           (``batch._bucket_key``, in order of first
+                           appearance, as ``decode_batch_on_device``
+                           buckets them) and ``build_block_plan`` one plan
+                           per bucket (the native row packer releases the
+                           interpreter lock; parsing does not); on a CUDA
+                           device the planner packs the rows straight into
+                           pinned host memory
+  submit (main thread)     per bucket, copy its plan to the card without
+                           blocking and launch kernel A and the color
+                           kernel on the current stream; then record one
+                           CUDA event; the in-flight record keeps every
+                           pinned plan alive until that event has passed
+  sync   (main thread)     wait for the event and read back each bucket's
+                           per-lane error vector (``resolve_rgb_errors``)
 
 At most `depth` chunks are in flight, and up to `prep_workers + depth`
 chunks are queued for prep. Everything runs on the one current stream, so
 the copies, kernels and readbacks are ordered without further events.
-Chunks the fused path cannot take (mixed geometry, progressive, oversize
-or marker-free segments, a plan-time data error) fall back at sync time
+A chunk of mixed geometry stays on the fused path, one launch chain per
+bucket; the reference's stream falls back on it (the output bytes are
+equal). Chunks the fused path cannot take in any bucket (progressive,
+mixed Huffman tables, oversize or marker-free segments, a plan-time data
+error) fall back whole at sync time
 to ``decode_batch_on_device``, then (where it raises a JpegError) to
 ``decode_batch``; a kernel or card failure raises. On a CPU device
 nothing is pinned and the kernels' plain versions run.
@@ -28,7 +35,7 @@ Traced (``spans``: decided once, when the stream starts, on the thread
 that consumes it), each chunk is a unit whose id is its index: the main
 thread's ``stream.prep_wait``, ``stream.submit`` and ``stream.sync`` spans
 (``stream.fallback`` and ``card_wait`` inside the last), and the prep
-threads' ``parse`` and ``plan``.
+threads' ``parse`` and ``plan`` (one ``plan`` per geometry bucket).
 """
 
 from __future__ import annotations
@@ -43,20 +50,29 @@ import torch
 from .. import bitstream, spans
 from ..config import DEFAULT_CONFIG, DecodeConfig
 from ..errors import JpegError, JpegUnsupportedError
+from ..kernels import pipeline
 from ..kernels import wavefront as wf
 from ..stats import DecodeStats
-from .batch import BatchResult, decode_batch, decode_batch_on_device
+from .batch import BatchResult, _bucket_key, decode_batch, decode_batch_on_device
 
 LAYOUTS = ("nhwc", "packed16")
 
 
 @dataclasses.dataclass
+class _Bucket:
+    """The images of one geometry bucket of a chunk and their fused plan."""
+
+    at: List[int]                    # positions in the chunk's members
+    jpegs: List
+    plan: wf.LanePlan
+
+
+@dataclasses.dataclass
 class _Unit:
-    """One prepped chunk: a fused-path plan, or a fallback."""
+    """One prepped chunk: fused-path buckets, or a fallback."""
 
     members: List[int]               # original indices of cleanly parsed images
-    jpegs: List
-    plan: Optional[wf.LanePlan]      # None -> fallback
+    buckets: Optional[List[_Bucket]]  # None -> fallback
     failures: Dict[int, Exception]   # original index -> parse error
     datas: Optional[List[bytes]] = None  # kept for the fallback only
 
@@ -64,8 +80,9 @@ class _Unit:
 @dataclasses.dataclass
 class StreamChunk:
     """One decoded chunk, yielded in submission order. `images[k]` is the
-    image of original index `members[k]` (a view of the chunk's batch on
-    the device on the fused path), or None when `failures` has that index.
+    image of original index `members[k]` (a view of its geometry bucket's
+    batch on the device on the fused path), or None when `failures` has
+    that index.
     `layout` is "nhwc" (uint8 [H, W, 3]) or "packed16" (planar uint16
     [3, H, W/2] whose little-endian bytes are the planar uint8 raster)."""
 
@@ -97,40 +114,54 @@ def _prep_chunk(datas: Sequence[bytes], members: List[int], pin: bool) -> _Unit:
         except Exception as e:  # never kill the stream
             failures[i] = JpegError(f"internal parse failure: {e!r}")
     if not ok:
-        return _Unit(ok, jpegs, None, failures)
+        return _Unit(ok, None, failures)
     try:
         if any(j.frame.progressive for j in jpegs):
             raise JpegUnsupportedError("progressive: the fallback decodes it")
-        plan = wf.build_block_plan(jpegs, pin_memory=pin)
-        if int(plan.qsets.shape[0]) > wf.MAX_QSETS:
-            raise JpegUnsupportedError("too many quantizer sets for the fused path")
+        groups: Dict[tuple, List[int]] = {}
+        for k, j in enumerate(jpegs):
+            groups.setdefault(_bucket_key(j), []).append(k)
+        buckets = []
+        for at in groups.values():
+            sub = [jpegs[k] for k in at]
+            plan = wf.build_block_plan(sub, pin_memory=pin)
+            if int(plan.qsets.shape[0]) > wf.MAX_QSETS:
+                raise JpegUnsupportedError("too many quantizer sets for the fused path")
+            buckets.append(_Bucket(at, sub, plan))
     except JpegError:
-        # Outside the fused path, or a plan-time data error that would
-        # poison the whole chunk: the fallback isolates images.
-        return _Unit(ok, jpegs, None, failures, [datas[i] for i in ok])
-    return _Unit(ok, jpegs, plan, failures)
+        # Outside the fused path in some bucket, or a plan-time data error
+        # that would poison a shared plan: the fallback isolates images.
+        return _Unit(ok, None, failures, [datas[i] for i in ok])
+    return _Unit(ok, buckets, failures)
 
 
 @dataclasses.dataclass
 class _InFlight:
     unit: _Unit
-    rgb: Optional[torch.Tensor] = None
-    err: Optional[torch.Tensor] = None
+    outs: List = dataclasses.field(default_factory=list)  # (rgb, err) per bucket
     layout: str = "nhwc"
-    done: Optional[torch.cuda.Event] = None  # passed once the unit's pinned plan is free
+    done: Optional[torch.cuda.Event] = None  # passed once the unit's pinned plans are free
 
 
 @spans.spanned(spans.SUBMIT)
 def _submit(unit: _Unit, config: DecodeConfig, device: torch.device, packed: bool) -> _InFlight:
-    """Main-thread stage: asynchronous copy and launches of the fused chain."""
-    if unit.plan is None:
+    """Main-thread stage: asynchronous copies and launches of the fused
+    chain, bucket by bucket. The chunk has one layout: packed16 only where
+    it applies to every bucket."""
+    if unit.buckets is None:
         return _InFlight(unit)  # the fallback decodes at sync time
-    rgb, layout, err = wf.decode_plan_to_rgb(unit.plan, unit.jpegs, config, device, packed=packed)
+    packed = packed and all(
+        pipeline.packed_layout_applies(b.jpegs[0].frame, config, bitstream.color_space(b.jpegs[0]))
+        for b in unit.buckets)
+    outs, layout = [], "nhwc"
+    for b in unit.buckets:
+        rgb, layout, err = wf.decode_plan_to_rgb(b.plan, b.jpegs, config, device, packed=packed)
+        outs.append((rgb, err))
     done = None
     if device.type == "cuda":
         done = torch.cuda.Event()
         done.record(torch.cuda.current_stream(device))
-    return _InFlight(unit, rgb, err, layout, done)
+    return _InFlight(unit, outs, layout, done)
 
 
 def _sync(flight: _InFlight, config: DecodeConfig, device: torch.device) -> StreamChunk:
@@ -138,8 +169,8 @@ def _sync(flight: _InFlight, config: DecodeConfig, device: torch.device) -> Stre
     unit = flight.unit
     failures = dict(unit.failures)
     members = list(unit.members) + list(unit.failures)
-    if unit.plan is None:
-        images: List[Optional[object]] = [None] * len(unit.members)
+    images: List[Optional[object]] = [None] * len(unit.members)
+    if unit.buckets is None:
         if unit.datas:
             # The device ladder first; host entropy per image where it
             # refuses the chunk as a whole. A kernel or card failure
@@ -160,14 +191,13 @@ def _sync(flight: _InFlight, config: DecodeConfig, device: torch.device) -> Stre
     if flight.done is not None:
         with spans.span(spans.CARD_WAIT):
             flight.done.synchronize()
-    local = wf.resolve_rgb_errors(flight.err, unit.plan)
-    images = []
-    for k, i in enumerate(unit.members):
-        if k in local:
-            failures[i] = local[k]
-            images.append(None)
-        else:
-            images.append(flight.rgb[k])
+    for b, (rgb, err) in zip(unit.buckets, flight.outs):
+        local = wf.resolve_rgb_errors(err, b.plan)
+        for li, k in enumerate(b.at):
+            if li in local:
+                failures[unit.members[k]] = local[li]
+            else:
+                images[k] = rgb[li]
     images += [None] * len(unit.failures)
     return StreamChunk(members, images, failures, "wavefront-fused", flight.layout)
 
@@ -183,8 +213,9 @@ def decode_stream(datas: Sequence[bytes], config: DecodeConfig = DEFAULT_CONFIG,
     with at most `depth` chunks in flight. Images stay on the device
     unless ``config.to_numpy`` (which reads each chunk back before it is
     yielded). layout="packed16" asks for the planar kernels' packed16 form
-    (chunk.layout says whether it applied: 4:2:0 and 4:2:2 YCbCr with an
-    even width); the chain then ends at the color kernel."""
+    (chunk.layout says whether it applied, to the whole chunk: where every
+    geometry bucket is 4:2:0 or 4:2:2 YCbCr with an even width); the chain
+    then ends at the color kernel."""
     if layout not in LAYOUTS:
         raise ValueError(f"layout {layout!r}: want one of {LAYOUTS}")
     device = torch.device(device)
