@@ -11,9 +11,10 @@ of tpujpeg/. Phases, one JSON line each:
 2. build: nvcc builds the eleven kernels into tpujpeg_torch/_build/ (one
    nvcc per source, all started together), and its -Xptxas -v report:
    registers, shared memory, stack and spill bytes per kernel. The
-   redesigned kernels (A, 2, 7, 8, 9 and every instance of the color tile
-   kernels: 4:2:0 behind B and its planar kernel, 4:2:2 behind C and its
-   planar kernel, 4:4:4 behind D) must show no stack and no spill.
+   redesigned kernels (A and its mixed form, 2, 7, 8, 9 and every
+   instance of the color tile kernels: 4:2:0 behind B and its planar
+   kernel, 4:2:2 behind C and its planar kernel, 4:4:4 behind D) must
+   show no stack and no spill.
 3. kernel_vs_plain: on every fused-path fixture at batch 2, kernel A's
    planes and error bits, kernel 2's coefficients and error bits,
    kernel 6's planes from those coefficients, and kernel B/C/D's RGB,
@@ -72,7 +73,17 @@ of tpujpeg/. Phases, one JSON line each:
    device-only rate (plans built and uploaded before the clock), and a
    packed16 chunk of 32 x 422_2048 (A and the 4:2:2 planar kernel),
    and the packed16 stream with pinned against pageable plans, 4 runs
-   each alternated, the first of each a warm-up.
+   each alternated, the first of each a warm-up. Then one chunk of the
+   imagenet_shard sizes (SHARD_CHUNK: 13 x 512^2, 10 x 768x512, 6 x
+   1024^2, 3 x 2048^2, crops of the 2048x2048 fixture by
+   fixtures/tile.py's crop_jpeg): its four geometry buckets' plans
+   combined (combine_plans, pinned) decode in one launch of kernel A's
+   mixed form and no other launch, equal (planes and error bits) to the
+   plain version of the combined plan and to each bucket's own launch;
+   the same 32 images as one decode_stream chunk (packed16) launch the
+   mixed form once and the 4:2:0 planar kernel once per bucket, every
+   image equal to decode_batch_on_device's and the 2048^2 ones to PIL's
+   hash.
 9. batch: decode_batch_on_device and decode_batch on one list of every
    fixture (fused, staged, progressive, norst, multi-scan), one member
    with its scan payload zeroed and bytes that are no JPEG: each image
@@ -97,7 +108,11 @@ of tpujpeg/. Phases, one JSON line each:
    (tools/color_probe.py's and color_profile.py's A/B), C, the 4:2:2
    planar kernel and D on random 32 x 2048^2 planes, each equal to its
    plain version there, and the tail split of tools/tail_variants.py:
-   kernel A alone, A + B and A + the planar kernel.
+   kernel A alone, A + B and A + the planar kernel. Kernel A's mixed form
+   on the shard chunk's combined plan beside its plain version, its
+   bound (the chunk's symbols counted from kernel 2's coefficients) and
+   the four bucket launches of the one-geometry form
+   (bucket_launches_ms).
 11. faults: one corrupted member of a batch fails with the manifest's
    exception class; the other members stay bit-exact. The marker-free
    2048x2048 fixture with its scan cut in half raises a JpegError from
@@ -190,6 +205,10 @@ AB_SIZE = 2048   # luma height and width of the random planes of kernel_timing_a
 KERNELS = {
     "wavefront_pixels": ("tpujpeg_torch/csrc/wavefront.cu", "tpujpeg/kernels/wavefront_pallas.py:660"),
     "wavefront_coeff": ("tpujpeg_torch/csrc/wavefront.cu", "tpujpeg/kernels/wavefront_pallas.py:841"),
+    "wavefront_pixels_mixed": (
+        "tpujpeg_torch/csrc/wavefront.cu",
+        "tpujpeg/kernels/wavefront_pallas.py:660 over several frame sizes per launch (the reference's stream "
+        "falls back on mixed chunks)"),
     "dequant_idct_islow": ("tpujpeg_torch/csrc/idct.cu", "tpujpeg/kernels/idct.py:42"),
     "upsample_color_h2v2": ("tpujpeg_torch/csrc/sample_color.cu", "tpujpeg/kernels/sample_color.py:97"),
     "upsample_color_h2v1": ("tpujpeg_torch/csrc/sample_color.cu", "tpujpeg/kernels/sample_color.py:146"),
@@ -205,6 +224,9 @@ KERNELS = {
         "tpujpeg_torch/csrc/sample_color.cu", "tpujpeg/kernels/sample_color.py:146 (packed_words=True)"),
 }
 STREAM_CHUNKS = 4   # the stream phase's chunks of MAIN_BATCH images
+# One stream chunk of jpegbench/configs/imagenet_shard.json's sizes:
+# (width, height, images) per geometry bucket, MAIN_BATCH images in all.
+SHARD_CHUNK = ((512, 512, 13), (768, 512, 10), (1024, 1024, 6), (2048, 2048, 3))
 SHARDS = 4          # the sharded phases' mesh: one shard per card, or SHARDS shards of card 0
 GIANT_TILES = 8     # the giant image: 420_2048 tiled 8 x 8, 16384 x 16384
 CLI_FILES = ("420_odd", "422", "444", "gray")   # the cli phase's batch job
@@ -216,10 +238,12 @@ BATCH_RUNG = {"prog_2048": "native", "multiscan": "wavefront-coeff"}
 NORST_MAIN = "norst_2048"   # the norst phase's fixture
 PROG_MAIN = "prog_rst_2048"   # the progressive phase's fixture
 PROG_KERNEL = {"dc_first": "prog_dc_first", "ac_first": "prog_ac_first", "ac_refine": "prog_ac_refine"}
-# The kernels redesigned to keep nothing in local memory (A, 2, 7, 8, 9,
-# and every instance of the color tile kernels: 4:2:0 behind B and its
-# planar kernel, 4:2:2 behind C and its planar kernel, 4:4:4 behind D).
-NO_LOCAL_MEMORY = ("wavefront_pixels_kernel", "wavefront_coeff_kernel", "prog_dc_first_kernel",
+# The kernels redesigned to keep nothing in local memory (A and its mixed
+# form, 2, 7, 8, 9, and every instance of the color tile kernels: 4:2:0
+# behind B and its planar kernel, 4:2:2 behind C and its planar kernel,
+# 4:4:4 behind D).
+NO_LOCAL_MEMORY = ("wavefront_pixels_kernel", "wavefront_pixels_kernel_mixed", "wavefront_coeff_kernel",
+                   "prog_dc_first_kernel",
                    "prog_ac_first_kernel", "prog_ac_refine_kernel",
                    *(f"{k}_tile_kernel<{v},{p}>" for k in ("h2v2", "h2v1") for v in (0, 1) for p in (0, 1)),
                    "color_444_tile_kernel<0>", "color_444_tile_kernel<1>")
@@ -302,6 +326,26 @@ def zero_payload(data: bytes) -> bytes:
         d[i] = 0
         i += 1
     return bytes(d)
+
+
+def shard_chunk(crop_jpeg, data: bytes):
+    """(bytes, (width, height)) of SHARD_CHUNK's images, each a crop of the
+    2048^2 fixture `data` (restart segments of 64 x 16 pixels) at its own
+    place, in the configuration's cycle of sizes (4:3:2:1) while each size
+    has images left; the 2048^2 ones are the fixture itself."""
+    left = {(w, h): n for w, h, n in SHARD_CHUNK}
+    cycle = [(w, h) for (w, h, _n), r in zip(SHARD_CHUNK, (4, 3, 2, 1)) for _ in range(r)]
+    sizes = []
+    while any(left.values()):
+        for wh in cycle:
+            if left[wh]:
+                left[wh] -= 1
+                sizes.append(wh)
+    out = []
+    for k, (w, h) in enumerate(sizes):
+        x, y = 64 * ((7 * k) % ((2048 - w) // 64 + 1)), 16 * ((5 * k) % ((2048 - h) // 16 + 1))
+        out.append(crop_jpeg(data, w, h, x, y))
+    return out, sizes
 
 
 def planar_bytes(torch, packed):
@@ -978,7 +1022,7 @@ def main() -> int:
     t0 = time.perf_counter()
     units = [stream_mod._prep(sdatas, m, True) for m in chunks]
     t_prep = time.perf_counter() - t0
-    dev_plans = [(b.plan.to(dev), b.jpegs) for u in units for b in u.buckets]
+    dev_plans = [(g.plan.to(dev), [b.jpegs for b in g.buckets]) for u in units for g in u.groups]
     # The same stage split: parse, then the plan into pageable and into
     # pinned memory (one thread, 4 chunks).
     t0 = time.perf_counter()
@@ -998,7 +1042,7 @@ def main() -> int:
         for i in range(4):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            outs = [wf.decode_plan_to_rgb(pl, js, scfg, dev, packed=layout == "packed16") for pl, js in dev_plans]
+            outs = [wf.decode_group_to_rgb(pl, js, scfg, dev, packed=layout == "packed16") for pl, js in dev_plans]
             torch.cuda.synchronize()
             if i:
                 runs.append(time.perf_counter() - t0)
@@ -1029,6 +1073,66 @@ def main() -> int:
         "upsample_color_h2v1_planar"]
     emit("stream", fixture="422_2048", layout="packed16", images=MAIN_BATCH, launches=got)
     del chunk
+
+    # One stream chunk of the imagenet_shard sizes (SHARD_CHUNK): crops of
+    # the main fixture, q85 4:2:0 with a restart every 4 MCUs, in the
+    # configuration's cycle of sizes. Its four geometry buckets combine
+    # into one plan, which kernel A's mixed form decodes in one launch,
+    # equal to the plain version of that plan and to each bucket's own
+    # launch; then the same images through decode_stream as one chunk.
+    from tpujpeg_torch.fixtures.tile import crop_jpeg
+
+    mdatas, msizes = shard_chunk(crop_jpeg, datas["420_2048"])
+    by_size = {}
+    for md, mwh in zip(mdatas, msizes):
+        by_size.setdefault(mwh, []).append(parse(md))
+    mbuckets = list(by_size.values())
+    mplans = [wf.build_block_plan(js) for js in mbuckets]
+    mlays = [wf.PlaneLayout.of(wf.ImageGeom.of(js[0])) for js in mbuckets]
+    check(len({wf.launch_key(p, lay) for p, lay in zip(mplans, mlays)}) == 1, "shard chunk: launch keys differ")
+    combined = wf.combine_plans(mplans, mlays, pin_memory=True)
+    build.LAUNCHES.clear()
+    mparts, merr = wf.decode_lanes_to_planes(combined.to(dev, non_blocking=True), None, dev)
+    torch.cuda.synchronize()
+    got = {k: n for k, n in build.LAUNCHES.items() if n}
+    check(got == {"wavefront_pixels_mixed": 1}, f"shard chunk: launches {got}")
+    check(not merr.any(), f"shard chunk: error bits on lanes {merr.nonzero().flatten().tolist()[:8]}")
+    pparts, perr = wf.decode_lanes_to_planes(combined.to(dev), None, dev, plain=True)
+    torch.cuda.synchronize()
+    mixed_err = max(max_abs(torch, a, b) for ks, ps in zip(mparts, pparts) for a, b in zip(ks, ps))
+    check(mixed_err == 0 and torch.equal(merr, perr), f"shard chunk: mixed kernel A != plain ({mixed_err})")
+    del pparts
+    lane0 = 0
+    for mjs, mplan, mpart in zip(mbuckets, mplans, mparts):
+        alone, aerr = wf.decode_lanes_to_planes(mplan, [wf.ImageGeom.of(j) for j in mjs], dev)
+        check(all(torch.equal(a, b) for a, b in zip(mpart, alone))
+              and torch.equal(aerr, merr[lane0:lane0 + mplan.n_lanes]),
+              f"shard chunk: the mixed launch != the {tuple(alone[0].shape)} bucket's launch")
+        lane0 += mplan.n_lanes
+    launches["wavefront_pixels_mixed"] = got["wavefront_pixels_mixed"]
+    del mparts, alone, aerr, mpart
+    mref = tpujpeg_torch.decode_batch_on_device(mdatas, scfg, device=dev)
+    check(not mref.errors, f"shard chunk: decode_batch_on_device failures {mref.errors}")
+    build.LAUNCHES.clear()
+    mchunks = list(tpujpeg_torch.decode_stream(mdatas, scfg, chunk_size=len(mdatas), layout="packed16",
+                                               device=dev))
+    torch.cuda.synchronize()
+    got = {k: n for k, n in build.LAUNCHES.items() if n}
+    check(got == {"wavefront_pixels_mixed": 1, "upsample_color_h2v2_planar": len(mbuckets)},
+          f"shard stream chunk: launches {got}")
+    check([(c.engine, c.layout, bool(c.failures)) for c in mchunks] == [("wavefront-fused", "packed16", False)],
+          f"shard stream chunk: {[(c.engine, c.layout, c.failures) for c in mchunks]}")
+    for mk, mi in enumerate(mchunks[0].members):
+        check(torch.equal(planar_bytes(torch, mchunks[0].images[mk]), mref.images[mi]),
+              f"shard stream chunk: image {mi} != decode_batch_on_device's")
+        if msizes[mi] == (2048, 2048):
+            check(sha(mref.images[mi]) == want_sha, f"shard stream chunk: image {mi} != PIL")
+    launches["wavefront_pixels_mixed"] += got["wavefront_pixels_mixed"]
+    launches["upsample_color_h2v2_planar"] += got["upsample_color_h2v2_planar"]
+    emit("stream_mixed", images=len(mdatas), buckets={f"{w}x{h}": len(js) for (w, h), js in by_size.items()},
+         lanes=combined.n_lanes, words=combined.n_words, lanes_per_bucket=[p.n_lanes for p in mplans],
+         launches=got, max_abs_err_vs_plain=mixed_err)
+    del mchunks, mref
 
     # 9. batch: every fixture, a zeroed payload and bytes that are no JPEG.
     names = list(manifest["fixtures"])
@@ -1090,6 +1194,32 @@ def main() -> int:
         bound=bound(row_bytes + sum(p.numel() for p in planes_k), decode_ops + blocks * OPS_IDCT_BLOCK),
     )
     del scratch
+
+    # Kernel A's mixed form on the shard chunk's combined plan, one launch,
+    # beside the four bucket launches of the one-geometry form; its bound
+    # counts the chunk's symbols from kernel 2's coefficients per bucket.
+    mcoef = [wf.decode_lanes_to_coeffs(p, [wf.ImageGeom.of(j) for j in js], dev)[0]
+             for js, p in zip(mbuckets, mplans)]
+    m_blocks = sum(c.shape[0] * c.shape[1] for cs in mcoef for c in cs)
+    m_symbols = sum(int(c.shape[0] * c.shape[1] + (c[..., 1:] != 0).sum() + (c[..., 63] == 0).sum())
+                    for cs in mcoef for c in cs)
+    del mcoef
+    cd = combined.to(dev)
+    m_flat = [torch.zeros(cd.parts[-1].end(sp), dtype=torch.uint8, device=dev) for sp in range(len(mlays[0].comp))]
+    m_err = torch.zeros(cd.n_lanes, dtype=torch.int32, device=dev)
+    b_dev = [(p.to(dev), lay, lay.alloc(p.n_images, dev), torch.zeros(p.n_lanes, dtype=torch.int32, device=dev))
+             for p, lay in zip(mplans, mlays)]
+    results["wavefront_pixels_mixed"] = dict(
+        max_abs_err=mixed_err,
+        ms=device_ms(torch, lambda: wf._launch_wavefront(cd, mlays[0], m_flat, m_err), 5),
+        plain_ms=cuda_ms(torch, lambda: wf.decode_lanes_plain(cd, mlays[0], m_flat, m_err), 1),
+        bucket_launches_ms=device_ms(torch, lambda: [wf._launch_wavefront(*b) for b in b_dev], 5),
+        shape=(f"{cd.n_lanes} lanes x {cd.n_words} words, {cd.n_images} images in {len(mplans)} geometries "
+               f"({', '.join(f'{w}x{h}' for w, h in by_size)}), {cd.blocks_per_mcu} blocks/MCU"),
+        bound=bound(int(cd.seg_bits.to(torch.int64).sum()) // 8 + sum(t.numel() for t in m_flat),
+                    m_symbols * OPS_SYMBOL + m_blocks * OPS_IDCT_BLOCK),
+    )
+    del cd, m_flat, m_err, b_dev, combined, mplans
 
     coef_k, err2_k, coef_p, err2_p = lanes(plan, geoms, wf.decode_lanes_to_coeffs)
     err_2 = max(max_abs(torch, a, b) for a, b in zip(coef_k, coef_p))
@@ -1790,7 +1920,7 @@ def main() -> int:
              launches=launches[k], max_abs_err=results[k]["max_abs_err"],
              ms=results[k]["ms"], plain_ms=results[k]["plain_ms"],
              bound_ms=results[k]["bound_ms"], bound_by=results[k]["bound_by"], library_ms=None,
-             **{key: results[k][key] for key in ("norst", "small") if key in results[k]})
+             **{key: results[k][key] for key in ("norst", "small", "bucket_launches_ms") if key in results[k]})
         for k in KERNELS
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

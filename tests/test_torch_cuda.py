@@ -958,6 +958,77 @@ def test_mixed_chunks_on_card_launch_kernel_a_once_per_bucket(cuda, layout):
             assert torch.equal(img, ref.images[i])
 
 
+# One cycle of jpegbench/configs/imagenet_shard.json: (width, height, images),
+# q85 4:2:0, a restart every 4 MCUs.
+SHARD_CYCLE = ((512, 512, 4), (768, 512, 3), (1024, 1024, 2), (2048, 2048, 1))
+
+
+def _shard_datas():
+    pytest.importorskip("PIL", reason="tests/corpus.py encodes with PIL")
+    from corpus import make_jpeg
+
+    return [[make_jpeg(w, h, seed=10 * k + i, quality=85, subsampling=2, restart_blocks=4) for i in range(n)]
+            for k, (w, h, n) in enumerate(SHARD_CYCLE)]
+
+
+def test_mixed_kernel_a_equals_bucket_launches_and_plain(cuda):
+    """Kernel A's mixed form, one launch over a shard-like chunk's four
+    geometry buckets (combine_plans, pinned), equals byte for byte, error
+    bits too, each bucket's own launch of the one-geometry form and the
+    plain version of the combined plan; the image whose payload is zeroed
+    fails alone."""
+    buckets = []
+    for k, datas in enumerate(_shard_datas()):
+        jpegs = [tpujpeg_torch.bitstream.parse(d if (k, i) != (2, 1) else zero_payload(d))
+                 for i, d in enumerate(datas)]
+        buckets.append((jpegs, wf.build_block_plan(jpegs), wf.PlaneLayout.of(wf.ImageGeom.of(jpegs[0]))))
+    combined = wf.combine_plans([p for _j, p, _l in buckets], [lay for _j, _p, lay in buckets],
+                                pin_memory=True)
+    fields = [getattr(combined, f.name) for f in dataclasses.fields(combined)]
+    assert all(t.is_pinned() for t in fields if isinstance(t, torch.Tensor))
+    assert [p.n for p in combined.parts] == [n for _w, _h, n in SHARD_CYCLE]
+    before = dict(build.LAUNCHES)
+    parts, err = wf.decode_lanes_to_planes(combined.to(cuda, non_blocking=True), None, cuda)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["wavefront_pixels_mixed"] - before.get("wavefront_pixels_mixed", 0) == 1
+    assert build.LAUNCHES["wavefront_pixels"] == before.get("wavefront_pixels", 0)
+    want_parts, want_err = wf.decode_lanes_to_planes(combined, None, cuda, plain=True)
+    assert torch.equal(err, want_err)
+    lane0 = 0
+    for (jpegs, plan, _lay), got, want in zip(buckets, parts, want_parts):
+        alone, alone_err = wf.decode_lanes_to_planes(plan, [wf.ImageGeom.of(j) for j in jpegs], cuda)
+        assert torch.equal(err[lane0:lane0 + plan.n_lanes], alone_err)
+        for a, b, c in zip(got, want, alone):
+            assert torch.equal(a, b) and torch.equal(a, c)
+        lane0 += plan.n_lanes
+    assert [sorted(f) for f in wf.resolve_group_errors(err, combined)] == [[], [], [1], []]
+
+
+def test_stream_launches_kernel_a_once_per_mixed_chunk(cuda):
+    """decode_stream over a shard-like chunk launches kernel A's mixed form
+    once and the 4:2:0 planar kernel once per bucket, and over a chunk of
+    one geometry the one-geometry form; every image equals
+    decode_batch_on_device's."""
+    datas = [d for bucket in _shard_datas() for d in bucket]
+    datas = datas[::2] + datas[1::2] + [_read("420_2048")] * 2
+    cfg = tpujpeg_torch.DecodeConfig(to_numpy=False)
+    ref = tpujpeg_torch.decode_batch_on_device(datas, cfg, device=cuda)
+    assert not ref.errors
+    before = dict(build.LAUNCHES)
+    chunks = list(tpujpeg_torch.decode_stream(datas, cfg, chunk_size=len(datas) - 2, layout="packed16",
+                                              device=cuda))
+    launched = {k: build.LAUNCHES[k] - before.get(k, 0) for k in build.LAUNCHES}
+    assert launched["wavefront_pixels_mixed"] == 1 and launched["wavefront_pixels"] == 1
+    assert launched["upsample_color_h2v2_planar"] == len(SHARD_CYCLE) + 1
+    assert [(ch.engine, ch.layout) for ch in chunks] == [("wavefront-fused", "packed16")] * 2
+    for ch in chunks:
+        assert not ch.failures
+        for k, i in enumerate(ch.members):
+            img = ch.images[k]
+            h, w = img.shape[1], img.shape[2] * 2
+            assert torch.equal(img.view(torch.uint8).view(3, h, w).permute(1, 2, 0), ref.images[i])
+
+
 def test_batch_entries_on_card_match_pil_hashes(cuda):
     """decode_batch_on_device and decode_batch on every fixture but the
     2048^2 ones, a corrupted member and bytes that are no JPEG."""

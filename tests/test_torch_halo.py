@@ -26,7 +26,7 @@ from tpujpeg.parallel import halo as ref_halo
 import tpujpeg_torch
 from tpujpeg_torch import DecodeConfig, JpegUnsupportedError, bitstream
 from tpujpeg_torch.decoder import _entropy_decode
-from tpujpeg_torch.fixtures.tile import norst_jpeg, tile_jpeg
+from tpujpeg_torch.fixtures.tile import crop_jpeg, norst_jpeg, tile_jpeg
 from tpujpeg_torch.kernels import idct
 from tpujpeg_torch.kernels import wavefront as wf
 from tpujpeg_torch.parallel import halo
@@ -323,6 +323,28 @@ def test_norst_jpeg_of_a_tiled_image_shards_its_entropy_decode(monkeypatch):
     assert calls == [1]
     plain = make_jpeg(64, 48, seed=1, subsampling=2)
     assert norst_jpeg(plain, _entropy_decode(bitstream.parse(plain), DecodeConfig(), DecodeStats(), "cpu")) == plain
+
+
+def test_crop_jpeg_keeps_the_source_blocks_of_its_rectangle():
+    """A crop of whole restart segments decodes to the source's blocks in
+    its rectangle, and to the source's pixels away from its edges, where
+    the chroma upsampler reads outside it."""
+    data = make_jpeg(128, 64, seed=2, subsampling=2, restart_blocks=2)   # segments of 32 x 16 pixels
+    src, out = bitstream.parse(data), bitstream.parse(crop_jpeg(data, 64, 32, x=32, y=16))
+    assert (out.frame.width, out.frame.height) == (64, 32)
+    got, want = (_entropy_decode(j, DecodeConfig(), DecodeStats(), "cpu") for j in (out, src))
+    for c, sc_, a, b in zip(out.frame.components, src.frame.components, got, want):
+        by, bx = 1 * c.v, 2 * c.h   # (16, 32) pixels in 16 x 16 MCUs
+        np.testing.assert_array_equal(
+            np.asarray(a).reshape(c.padded_hb, c.padded_wb, 64),
+            np.asarray(b).reshape(sc_.padded_hb, sc_.padded_wb, 64)[by:by + c.padded_hb, bx:bx + c.padded_wb])
+    np.testing.assert_array_equal(pil_decode(crop_jpeg(data, 64, 32, x=32, y=16))[2:-2, 2:-2],
+                                  pil_decode(data)[18:46, 34:94])
+    assert crop_jpeg(data, 128, 64) == data
+    for kw in (dict(width=48, height=32), dict(width=64, height=24), dict(width=64, height=32, x=16),
+               dict(width=64, height=32, x=96), dict(width=64, height=48, y=32)):
+        with pytest.raises(ValueError, match="whole"):
+            crop_jpeg(data, **kw)
 
 
 def test_tile_jpeg_refusals():

@@ -282,3 +282,154 @@ def test_a_mixed_chunk_with_a_member_the_planner_refuses_falls_back_whole(odd_on
     assert ch.engine == "fallback" and ch.layout == "nhwc" and not ch.failures
     for k, d in enumerate(datas):
         np.testing.assert_array_equal(ch.images[k], pil_decode(d))
+
+
+# --- launch groups: a chunk's geometry buckets in one kernel-A launch
+
+def _tiny(w, h, seed, subsampling=2, quality=85, optimize=False, restart=1, kind="photo"):
+    from corpus import encode, make_image
+
+    return encode(make_image(w, h, seed=seed, kind=kind), quality=quality, subsampling=subsampling,
+                  restart_blocks=restart, optimize=optimize)
+
+
+def _zero_segment(data: bytes, k: int) -> bytes:
+    """The stream with restart segment k of its scan zeroed."""
+    d = bytearray(data)
+    sos = d.index(b"\xff\xda")
+    i = sos + 2 + int.from_bytes(d[sos + 2 : sos + 4], "big")
+    seg = 0
+    while i < len(d) - 2:
+        if d[i] == 0xFF and 0xD0 <= d[i + 1] <= 0xD7:
+            seg += 1
+            i += 2
+            continue
+        if d[i] == 0xFF and d[i + 1] == 0xD9:
+            break
+        if seg == k:
+            d[i] = 0
+        i += 1
+    return bytes(d)
+
+
+def _groups_of(monkeypatch):
+    """Spy on the stream's launches: per call, the geometry buckets' sizes
+    of its plan (one part where the plan has none)."""
+    seen = []
+    real = wf.decode_group_to_rgb
+
+    def spy(plan, bucket_jpegs, *a, **k):
+        seen.append([len(js) for js in bucket_jpegs])
+        assert (plan.parts is None) == (len(bucket_jpegs) == 1)
+        return real(plan, bucket_jpegs, *a, **k)
+
+    monkeypatch.setattr(wf, "decode_group_to_rgb", spy)
+    return seen
+
+
+def test_combined_plan_through_the_plain_version_equals_bucket_decodes():
+    """combine_plans over three 4:2:0 geometry buckets (one at another
+    quality) decodes through the plain version, byte for byte and error bit
+    for error bit, as each bucket's own plan does: the rows padded to the
+    widest, images and quantizer sets renumbered, each image's geometry
+    row placing its planes in the flat outputs; a zeroed segment fails its
+    own image only."""
+    datas = [[_tiny(16, 16, 1), _zero_segment(_tiny(16, 16, 2), 0)], [_tiny(32, 16, 3, quality=70)],
+             [_tiny(16, 32, s, quality=90, restart=2) for s in (4, 5)]]
+    buckets = [[bitstream.parse(d) for d in ds] for ds in datas]
+    plans = [wf.build_block_plan(js) for js in buckets]
+    layouts = [wf.PlaneLayout.of(wf.ImageGeom.of(js[0])) for js in buckets]
+    assert plans[0].n_words < plans[2].n_words   # the first bucket's rows are padded
+    combined = wf.combine_plans(plans, layouts)
+    assert combined.n_images == 5 and int(combined.qsets.shape[0]) == 3
+    assert [(p.first, p.n) for p in combined.parts] == [(0, 2), (2, 1), (3, 2)]
+    assert combined.geom[:, 0].tolist() == [1, 1, 2, 1, 1]
+    parts, err = wf.decode_lanes_to_planes(combined, None, "cpu")
+    lane0 = 0
+    for js, plan, got in zip(buckets, plans, parts):
+        want, want_err = wf.decode_lanes_to_planes(plan, [wf.ImageGeom.of(j) for j in js], "cpu")
+        np.testing.assert_array_equal(err[lane0:lane0 + plan.n_lanes].numpy(), want_err.numpy())
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
+        lane0 += plan.n_lanes
+    failures = wf.resolve_group_errors(err, combined)
+    assert [sorted(f) for f in failures] == [[1], [], []]
+    assert isinstance(failures[0][1], tpujpeg_torch.JpegError)
+
+
+def test_a_corrupt_segment_in_a_launch_group_fails_only_its_image(monkeypatch):
+    """One restart segment zeroed in an image of one geometry bucket: the
+    chunk's three buckets still share one launch, that image alone fails,
+    and its neighbours, in its bucket and the others, equal PIL."""
+    seen = _groups_of(monkeypatch)
+    datas = [_tiny(16, 16, 1), _tiny(32, 16, 2), _zero_segment(_tiny(32, 16, 3), 1), _tiny(16, 32, 4),
+             _tiny(32, 16, 5)]
+    (ch,) = tpujpeg_torch.decode_stream(datas, chunk_size=5, layout="packed16", **CPU)
+    assert seen == [[1, 3, 1]]
+    assert ch.engine == "wavefront-fused" and set(ch.failures) == {2} and ch.images[2] is None
+    assert isinstance(ch.failures[2], tpujpeg_torch.JpegError)
+    for k in (0, 1, 3, 4):
+        np.testing.assert_array_equal(_as_hwc(ch.images[k], ch.layout), pil_decode(datas[k]))
+
+
+@pytest.mark.parametrize("apart", ["qsets", "tables", "sampling"])
+def test_buckets_that_cannot_share_a_launch_take_two_groups_and_stay_fused(monkeypatch, apart):
+    """Two geometry buckets whose quantizer sets together pass MAX_QSETS
+    (5 + 4 qualities), or whose Huffman tables (optimized tables in one)
+    or sampling (4:2:2 in one) differ, take a launch group each, and the
+    chunk stays fused, bit-exact."""
+    seen = _groups_of(monkeypatch)
+    if apart == "qsets":
+        datas = ([_tiny(16, 16, s, quality=q) for s, q in enumerate((50, 55, 60, 65, 70))]
+                 + [_tiny(32, 16, s, quality=q) for s, q in enumerate((75, 80, 85, 90))])
+    elif apart == "tables":
+        datas = [_tiny(16, 16, 1), _tiny(16, 16, 2), _tiny(32, 16, 3, optimize=True)]
+    else:
+        datas = [_tiny(16, 16, 1), _tiny(32, 16, 3, subsampling=1), _tiny(16, 16, 2)]
+    (ch,) = tpujpeg_torch.decode_stream(datas, chunk_size=len(datas), **CPU)
+    assert len(seen) == 2 and all(len(g) == 1 for g in seen)
+    assert ch.engine == "wavefront-fused" and not ch.failures
+    for k, d in enumerate(datas):
+        np.testing.assert_array_equal(ch.images[k], pil_decode(d))
+
+
+def test_a_buckets_and_launch_counts_per_chunk(monkeypatch):
+    """Traced (a unit adopted on the consuming thread, as under a profile),
+    each chunk counts one ``a_buckets`` record per kernel-A launch (the
+    buckets it decodes) and one ``launch`` per kernel: a chunk of three
+    4:2:0 buckets 1 + 3 (A once, the planar kernel per bucket), a uniform
+    chunk 1 + 1, a chunk of 4:2:0 and 4:2:2 buckets 2 + 2; the benchmark's
+    a_buckets_per_launch.shard reads (3 + 1 + 1 + 1) / 4."""
+    import types
+
+    from jpegbench import harness
+    from tpujpeg_torch import spans
+    from tpujpeg_torch.kernels import build, pipeline
+
+    real_plain = wf.decode_lanes_plain
+
+    def plain(plan, *a, **k):   # the launch kernel A makes on the card
+        build.launched("wavefront_pixels_mixed" if plan.geom is not None else "wavefront_pixels")
+        return real_plain(plan, *a, **k)
+
+    monkeypatch.setattr(wf, "decode_lanes_plain", plain)
+    for key, name in ((pipeline._H2V2, "upsample_color_h2v2_planar"), (pipeline._H2V1, "upsample_color_h2v1_planar")):
+        def color(*planes, _real=pipeline._PACKED_KERNELS[key], _name=name):
+            build.launched(_name)
+            return _real(*planes)
+
+        monkeypatch.setitem(pipeline._PACKED_KERNELS, key, color)
+    datas = [_tiny(16, 16, 1), _tiny(32, 16, 2), _tiny(16, 32, 3),
+             _tiny(16, 16, 4), _tiny(16, 16, 5), _tiny(16, 16, 6),
+             _tiny(16, 16, 7), _tiny(32, 16, 8, subsampling=1), _tiny(16, 16, 9)]
+    spans.drain()
+    with spans.adopt(-1):
+        chunks = list(tpujpeg_torch.decode_stream(datas, chunk_size=3, layout="packed16", **CPU))
+    recs = spans.drain()
+    assert [ch.engine for ch in chunks] == ["wavefront-fused"] * 3 and not any(ch.failures for ch in chunks)
+    a_buckets = {u: [r.n for r in recs if r.name == spans.A_BUCKETS and r.unit == u] for u in range(3)}
+    launches = {u: sum(r.n for r in recs if r.name == spans.LAUNCH and r.unit == u) for u in range(3)}
+    assert a_buckets == {0: [3], 1: [1], 2: [1, 1]} and launches == {0: 4, 1: 2, 2: 4}
+    run = types.SimpleNamespace(port=types.SimpleNamespace(spans=types.SimpleNamespace(drain=lambda: recs)),
+                                trace=object(), records=[{"engine": ch.engine} for ch in chunks])
+    assert harness.reader("a_buckets_per_launch.shard").read(run) == pytest.approx(6 / 4)

@@ -55,7 +55,15 @@
 //    Blocks whose tables are equal share one staged copy (lut_of).
 //  * the block layout (blk, comp) and the table sharing come by value in
 //    the kernel's arguments, and the quantizers are read in zigzag order
-//    as the plan holds them, so a launch copies nothing to the card.
+//    as the plan holds them, so a launch copies nothing to the card;
+//  * kernel A has a second form, wavefront_pixels_kernel_mixed, for a
+//    plan over images of several frame sizes that share everything above
+//    (one launch for a stream chunk's geometry buckets, each of which
+//    alone fills a fraction of a wave): each image's MCU width, and per
+//    plane its height, width and byte offset in one flat output per
+//    plane, come from a table of TJ_GEOM_WORDS int32 per image, staged in
+//    shared memory with the tables. The lane body is one template; its
+//    one-geometry instance is the kernel as it was.
 //
 // Semantics follow the reference exactly, including on corrupt streams:
 //  * words past the row read row[w & (P-1)] when that index is < W, else
@@ -83,6 +91,12 @@
 #define TJ_MAX_B 10
 #define TJ_MAX_LUT 4
 #define TJ_WF_THREADS 128
+// A mixed launch's geometry table: per image, int32 [TJ_GEOM_WORDS] =
+// mcus_x, 3 unused, then per scan component (plane_h, plane_w, byte
+// offset / 64 of the image's plane in the component's flat output). At
+// most TJ_MAX_GEOM images a launch (16 KB of shared memory).
+#define TJ_GEOM_WORDS 16
+#define TJ_MAX_GEOM 256
 
 typedef unsigned long long u64;
 
@@ -120,7 +134,8 @@ struct LaneArgs {
 
 // Shared memory: stage int16 [kStage], lut u16 [n_lut][2][512], tab int
 // [n_lut][68], q int [nq][B][64], blk int [B][4], comp int [n_planes][4],
-// lut_of int [B], hv u8 [n_lut][2][256].
+// lut_of int [B], geom int [n_geom][TJ_GEOM_WORDS] (mixed form only), hv
+// u8 [n_lut][2][256].
 struct Smem {
   int16_t* stage;
   const uint16_t* lut;
@@ -129,19 +144,23 @@ struct Smem {
   const int* blk;
   const int* comp;
   const int* lut_of;
+  const int* geom;
   const uint8_t* hv;
 };
 
-static size_t smem_bytes(int stage, int B, int nq, int n_planes, int n_lut) {
+static size_t smem_bytes(int stage, int B, int nq, int n_planes, int n_lut, int n_geom = 0) {
   return sizeof(int16_t) * stage + sizeof(uint16_t) * n_lut * 1024 +
-         sizeof(int) * (n_lut * 68 + nq * B * 64 + B * 4 + n_planes * 4 + B) + n_lut * 512;
+         sizeof(int) * (n_lut * 68 + nq * B * 64 + B * 4 + n_planes * 4 + B +
+                        n_geom * TJ_GEOM_WORDS) +
+         n_lut * 512;
 }
 
-// Stage the tables, quantizers and layout, then build the lookahead
-// tables from the staged ones. Every index into the argument arrays is a
-// compile-time constant.
-template <int kStage>
-__device__ __forceinline__ Smem stage_smem(const LaneArgs& a) {
+// Stage the tables, quantizers and layout (kMixed: and the n_geom images'
+// geometry), then build the lookahead tables from the staged ones. Every
+// index into the argument arrays is a compile-time constant.
+template <int kStage, bool kMixed = false>
+__device__ __forceinline__ Smem stage_smem(const LaneArgs& a, const int* geom = nullptr,
+                                           int n_geom = 0) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   int16_t* s_stage = (int16_t*)smem_raw;
   uint16_t* s_lut = (uint16_t*)(s_stage + kStage);
@@ -150,7 +169,8 @@ __device__ __forceinline__ Smem stage_smem(const LaneArgs& a) {
   int* s_blk = s_q + a.nq * a.B * 64;
   int* s_comp = s_blk + a.B * 4;
   int* s_lut_of = s_comp + a.n_planes * 4;
-  uint8_t* s_hv = (uint8_t*)(s_lut_of + a.B);
+  int* s_geom = s_lut_of + a.B;
+  uint8_t* s_hv = (uint8_t*)(s_geom + (kMixed ? n_geom * TJ_GEOM_WORDS : 0));
   const int tid = threadIdx.x;
 #pragma unroll
   for (int u = 0; u < TJ_MAX_LUT; ++u) {
@@ -161,6 +181,8 @@ __device__ __forceinline__ Smem stage_smem(const LaneArgs& a) {
     }
   }
   for (int i = tid; i < a.nq * a.B * 64; i += blockDim.x) s_q[i] = a.qsets[i];
+  if (kMixed)
+    for (int i = tid; i < n_geom * TJ_GEOM_WORDS; i += blockDim.x) s_geom[i] = geom[i];
   if (tid == 0) {
 #pragma unroll
     for (int b = 0; b < TJ_MAX_B; ++b) {
@@ -185,7 +207,7 @@ __device__ __forceinline__ Smem stage_smem(const LaneArgs& a) {
     s_lut[i] = tj_lookahead_entry(i & 511, tb, tb + 17, s_hv + t * 256);
   }
   __syncthreads();
-  return Smem{s_stage, s_lut, s_tab, s_q, s_blk, s_comp, s_lut_of, s_hv};
+  return Smem{s_stage, s_lut, s_tab, s_q, s_blk, s_comp, s_lut_of, s_geom, s_hv};
 }
 
 // Where the block decode stages AC value k (1..63). Kernel A: its
@@ -284,24 +306,35 @@ __device__ __forceinline__ void* block_place(const Smem& sm, const Outputs& out,
 }
 
 // Kernel A's epilogue: dequant + islow IDCT in registers, u8 samples into
-// planes[sp][img] at the block's raster position.
+// planes[sp][img] at the block's raster position; kMixed: into the flat
+// planes[sp] at the image's offset, rows of the image's plane width.
 struct PixelsEpi {
   Outputs planes;
   int B;
   int lane_qset;
+  template <bool kMixed>
   __device__ __forceinline__ void store(const Smem& sm, int img, int b, int my, int mx,
                                         const int16_t* st, u64 nzm, u32 dc) const {
     const int* q = sm.q + (lane_qset * B + b) * 64;  // zigzag order
     int sp, brow, bcol;
     uint8_t* plane = (uint8_t*)block_place(sm, planes, b, my, mx, sp, brow, bcol);
-    const int ph = sm.comp[sp * 4 + 2], pw = sm.comp[sp * 4 + 3];
-    uint8_t* dst = plane + ((size_t)img * ph + (size_t)brow * 8) * pw + (size_t)bcol * 8;
+    size_t pw;
+    uint8_t* dst;
+    if (kMixed) {
+      const int* gs = sm.geom + img * TJ_GEOM_WORDS + 4 + sp * 3;  // (plane_h, plane_w, offset / 64)
+      pw = (size_t)gs[1];
+      dst = plane + (size_t)(u32)gs[2] * 64 + (size_t)brow * 8 * pw + (size_t)bcol * 8;
+    } else {
+      const int ph = sm.comp[sp * 4 + 2];
+      pw = (size_t)sm.comp[sp * 4 + 3];
+      dst = plane + ((size_t)img * ph + (size_t)brow * 8) * pw + (size_t)bcol * 8;
+    }
     auto coef = [&](int n) -> int {
       const int k = tj_natural_to_zigzag(n);
       const u32 c = k == 0 ? dc : (u32)staged(st, nzm, k);
       return (int)(c * (u32)q[k]);
     };
-    tj_idct_islow_store(coef, dst, (size_t)pw);
+    tj_idct_islow_store(coef, dst, pw);
   }
 };
 
@@ -321,7 +354,8 @@ __device__ __forceinline__ void start_preds(const LaneArgs& a, int lane, u32& pr
 
 // Kernel A: decode every block of one lane and run the epilogue on each.
 // A lane with an error stops advancing; its remaining blocks have all-zero
-// coefficients.
+// coefficients. kMixed: the MCU width is the lane's image's.
+template <bool kMixed>
 __device__ __forceinline__ void decode_lane(const LaneArgs& a, const Smem& sm, const PixelsEpi& epi,
                                             int lane) {
   int cur = a.bit0 ? a.bit0[lane] : 0;
@@ -329,6 +363,7 @@ __device__ __forceinline__ void decode_lane(const LaneArgs& a, const Smem& sm, c
   const int img = a.lane_meta[lane * 3 + 0];
   const int first = a.lane_meta[lane * 3 + 1];
   const int lm = a.lane_m[lane];
+  const int mcus_x = kMixed ? sm.geom[img * TJ_GEOM_WORDS] : a.mcus_x;
   int16_t* st = sm.stage + threadIdx.x;
 
   int err = 0;
@@ -337,14 +372,14 @@ __device__ __forceinline__ void decode_lane(const LaneArgs& a, const Smem& sm, c
 
   for (int m = 0; m < lm; ++m) {
     const int g = first + m;
-    const int my = g / a.mcus_x;
-    const int mx = g - my * a.mcus_x;
+    const int my = g / mcus_x;
+    const int mx = g - my * mcus_x;
     for (int b = 0; b < a.B; ++b) {
       const BlockTables bt = block_tables(sm, b);
       StageColumn stage{st, 0ull};
       u32 dc = 0u;
       if (err == 0) dc = decode_block(bt, stage, words, cur, err, pred0, pred1, pred2, pred3);
-      epi.store(sm, img, b, my, mx, st, stage.nzm, dc);
+      epi.store<kMixed>(sm, img, b, my, mx, st, stage.nzm, dc);
     }
   }
   const bool trunc = cur > a.seg_bits[lane] + 7 && lm > 0;
@@ -431,7 +466,21 @@ __global__ void __launch_bounds__(TJ_WF_THREADS) wavefront_pixels_kernel(LaneArg
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= a.L) return;
   PixelsEpi epi{planes, a.B, a.lane_q[lane]};
-  decode_lane(a, sm, epi, lane);
+  decode_lane<false>(a, sm, epi, lane);
+}
+
+// Kernel A over images of several frame sizes: geom holds n_geom images'
+// rows of TJ_GEOM_WORDS, lane_meta's image indexes them, and planes are the
+// flat outputs, one per scan component.
+__global__ void __launch_bounds__(TJ_WF_THREADS) wavefront_pixels_kernel_mixed(LaneArgs a,
+                                                                               Outputs planes,
+                                                                               const int* geom,
+                                                                               int n_geom) {
+  const Smem sm = stage_smem<TJ_STAGE_A, true>(a, geom, n_geom);
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= a.L) return;
+  PixelsEpi epi{planes, a.B, a.lane_q[lane]};
+  decode_lane<true>(a, sm, epi, lane);
 }
 
 __global__ void __launch_bounds__(TJ_WF_THREADS) wavefront_coeff_kernel(LaneArgs a,
@@ -448,11 +497,14 @@ static int launch(bool pixels, const void* bits, int W, int P, const void* seg_b
                   const void* bit0, const void* dc0, int L,
                   const void* tables, const void* huffval, const void* qsets, const int* blk,
                   const int* comp, const int* lut_of, int B, int nq, int n_planes, int mcus_x,
-                  void* p0, void* p1, void* p2, void* p3, void* err, void* stream) {
+                  const void* geom, int n_geom, void* p0, void* p1, void* p2, void* p3,
+                  void* err, void* stream) {
   if (L <= 0) return (int)cudaSuccess;
   if (B <= 0 || B > TJ_MAX_B || (pixels && nq <= 0) || n_planes <= 0 || n_planes > 4 ||
-      mcus_x <= 0 || W <= 0 || P < W || (P & (P - 1)) || (dc0 && ((uintptr_t)dc0 & 15)))
+      mcus_x <= 0 || W <= 0 || P < W || (P & (P - 1)) || (dc0 && ((uintptr_t)dc0 & 15)) ||
+      (geom && (!pixels || n_geom <= 0 || n_geom > TJ_MAX_GEOM)))
     return (int)cudaErrorInvalidValue;
+  if (!geom) n_geom = 0;
   if (!pixels) nq = 0;
   LaneArgs a{};
   a.bits = (const u32*)bits;
@@ -489,9 +541,15 @@ static int launch(bool pixels, const void* bits, int W, int P, const void* seg_b
   for (int s = 0; s < n_planes; ++s)
     for (int j = 0; j < 4; ++j) a.comp[s][j] = comp[s * 4 + j];
   Outputs out = {{p0, p1, p2, p3}};
-  const size_t smem = smem_bytes(pixels ? TJ_STAGE_A : TJ_STAGE_2, B, nq, n_planes, a.n_lut);
+  const size_t smem = smem_bytes(pixels ? TJ_STAGE_A : TJ_STAGE_2, B, nq, n_planes, a.n_lut, n_geom);
   const int blocks = (L + TJ_WF_THREADS - 1) / TJ_WF_THREADS;
-  if (pixels) {
+  if (geom) {
+    if (smem > 48 * 1024)
+      cudaFuncSetAttribute(wavefront_pixels_kernel_mixed,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    wavefront_pixels_kernel_mixed<<<blocks, TJ_WF_THREADS, smem, (cudaStream_t)stream>>>(
+        a, out, (const int*)geom, n_geom);
+  } else if (pixels) {
     if (smem > 48 * 1024)
       cudaFuncSetAttribute(wavefront_pixels_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
@@ -509,18 +567,21 @@ static int launch(bool pixels, const void* bits, int W, int P, const void* seg_b
 // each lane's set; bit0 (int32 [L]) and dc0 (int32 [L][4], 16-byte
 // aligned) each lane's start bit and primed DC predictors, or null for
 // restart lanes; p0..p3: u8 [N, plane_h, plane_w] planes of the scan's
-// components.
+// components. With geom (device int32 [n_geom][TJ_GEOM_WORDS], 1 <= n_geom
+// <= TJ_MAX_GEOM) the mixed form runs: comp gives only (h, v), mcus_x is
+// ignored, and p0..p3 are flat u8 outputs holding each image's plane at
+// its offset.
 extern "C" int tj_wavefront_pixels(const void* bits, int W, int P, const void* seg_bits,
                                    const void* lane_m, const void* lane_q,
                                    const void* lane_meta, const void* bit0, const void* dc0,
                                    int L, const void* tables, const void* huffval,
                                    const void* qsets, const int* blk, const int* comp,
                                    const int* lut_of, int B, int nq, int n_planes, int mcus_x,
-                                   void* p0, void* p1, void* p2, void* p3, void* err,
-                                   void* stream) {
+                                   const void* geom, int n_geom, void* p0, void* p1, void* p2,
+                                   void* p3, void* err, void* stream) {
   return launch(true, bits, W, P, seg_bits, lane_m, lane_q, lane_meta, bit0, dc0, L, tables,
-                huffval, qsets, blk, comp, lut_of, B, nq, n_planes, mcus_x, p0, p1, p2, p3, err,
-                stream);
+                huffval, qsets, blk, comp, lut_of, B, nq, n_planes, mcus_x, geom, n_geom, p0, p1,
+                p2, p3, err, stream);
 }
 
 // Kernel 2: as tj_wavefront_pixels without quantizers (bit0 and dc0 as
@@ -534,8 +595,8 @@ extern "C" int tj_wavefront_coeff(const void* bits, int W, int P, const void* se
                                   const int* lut_of, int B, int n_planes, int mcus_x, void* c0,
                                   void* c1, void* c2, void* c3, void* err, void* stream) {
   return launch(false, bits, W, P, seg_bits, lane_m, nullptr, lane_meta, bit0, dc0, L, tables,
-                huffval, nullptr, blk, comp, lut_of, B, 0, n_planes, mcus_x, c0, c1, c2, c3, err,
-                stream);
+                huffval, nullptr, blk, comp, lut_of, B, 0, n_planes, mcus_x, nullptr, 0, c0, c1, c2,
+                c3, err, stream);
 }
 
 // Resident CTAs per SM of kernel A (pixels != 0) or kernel 2 at the
@@ -548,6 +609,19 @@ extern "C" int tj_wavefront_occupancy(int pixels, int B, int nq, int n_planes, i
       smem_bytes(pixels ? TJ_STAGE_A : TJ_STAGE_2, B, pixels ? nq : 0, n_planes, n_lut);
   const void* fn =
       pixels ? (const void*)wavefront_pixels_kernel : (const void*)wavefront_coeff_kernel;
+  if (bytes > 48 * 1024)
+    cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  *smem = (int)bytes;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, fn, TJ_WF_THREADS, bytes);
+}
+
+// Resident CTAs per SM of kernel A's mixed form at the dynamic shared memory
+// a launch over n_geom images with B blocks per MCU, nq quantizer sets,
+// n_planes planes and n_lut table sets asks for; *smem gets those bytes.
+extern "C" int tj_wavefront_occupancy_mixed(int B, int nq, int n_planes, int n_lut, int n_geom,
+                                            int* ctas, int* smem) {
+  const size_t bytes = smem_bytes(TJ_STAGE_A, B, nq, n_planes, n_lut, n_geom);
+  const void* fn = (const void*)wavefront_pixels_kernel_mixed;
   if (bytes > 48 * 1024)
     cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   *smem = (int)bytes;

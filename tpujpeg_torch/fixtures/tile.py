@@ -1,7 +1,10 @@
-"""Build a giant restart-segmented JPEG from a small one, on bytes alone,
-and re-encode a JPEG without restart markers.
+"""Build a giant restart-segmented JPEG from a small one, or a smaller one
+from a part of it, on bytes alone, and re-encode a JPEG without restart
+markers.
 
     tile_jpeg(data, nx, ny) -> bytes
+
+    crop_jpeg(data, width, height, x=0, y=0) -> bytes
 
     norst_jpeg(data, coeffs) -> bytes
 
@@ -13,6 +16,10 @@ decode to the blocks they held in place: the result's coefficients are
 the source's tiled (its pixels too, but where the chroma upsampler reads
 across a seam). ``tile_jpeg(420_2048.jpg, 8, 8)`` is the 16384 x 16384
 4:2:0 image of the sharded giant-image configuration (about 86 MB).
+``crop_jpeg`` keeps the segments of a rectangle of whole segments, so
+its coefficients are the source's there; ``crop_jpeg(420_2048.jpg, 512,
+512, x, y)`` and its 768x512 and 1024x1024 siblings give the image sizes
+of the ImageNet-shard configuration without an encoder.
 
 Needs a baseline (SOF0/SOF1) single-scan file whose restart interval
 divides its MCUs per row (so no segment crosses a row) and whose size is
@@ -83,10 +90,11 @@ def _segments(data: bytes, start: int) -> List[bytes]:
     raise ValueError("tile_jpeg: no EOI marker")
 
 
-def tile_jpeg(data: bytes, nx: int, ny: int) -> bytes:
-    """The JPEG `data` tiled `nx` times across and `ny` times down."""
-    if nx < 1 or ny < 1:
-        raise ValueError(f"tile_jpeg: nx={nx}, ny={ny}")
+def _segment_rows(data: bytes, what: str):
+    """(SOF offset, scan data offset, segment width and MCU height in
+    pixels, each MCU row's restart segments) of a file whose restart
+    interval divides its MCUs per row: the file is len(rows[0]) segments
+    wide and len(rows) MCUs high."""
     sof, ri, scan0 = _headers(data)
     height = int.from_bytes(data[sof + 5 : sof + 7], "big")
     width = int.from_bytes(data[sof + 7 : sof + 9], "big")
@@ -98,23 +106,26 @@ def tile_jpeg(data: bytes, nx: int, ny: int) -> bytes:
     if ncomp == 1:
         mcu_w = mcu_h = 8  # a single-component scan has one block per MCU
     if width % mcu_w or height % mcu_h:
-        raise ValueError(f"tile_jpeg: {width}x{height} is not whole {mcu_w}x{mcu_h} MCUs")
+        raise ValueError(f"{what}: {width}x{height} is not whole {mcu_w}x{mcu_h} MCUs")
     mcus_x, mcus_y = width // mcu_w, height // mcu_h
     if ri <= 0 or mcus_x % ri:
-        raise ValueError(f"tile_jpeg: restart interval {ri} must divide the {mcus_x} MCUs of a row")
-    new_w, new_h = width * nx, height * ny
-    if new_w > 0xFFFF or new_h > 0xFFFF:
-        raise ValueError(f"tile_jpeg: {new_w}x{new_h} exceeds SOF's 16-bit size")
+        raise ValueError(f"{what}: restart interval {ri} must divide the {mcus_x} MCUs of a row")
     segs = _segments(data, scan0)
     per_row = mcus_x // ri
     if len(segs) != per_row * mcus_y:
-        raise ValueError(f"tile_jpeg: {len(segs)} segments, expected {per_row * mcus_y}")
-
-    out = bytearray(data[:scan0])
-    out[sof + 5 : sof + 7] = new_h.to_bytes(2, "big")
-    out[sof + 7 : sof + 9] = new_w.to_bytes(2, "big")
+        raise ValueError(f"{what}: {len(segs)} segments, expected {per_row * mcus_y}")
     rows = [segs[r * per_row : (r + 1) * per_row] for r in range(mcus_y)]
-    order = [seg for _ in range(ny) for row in rows for _ in range(nx) for seg in row]
+    return sof, scan0, ri * mcu_w, mcu_h, rows
+
+
+def _assemble(data: bytes, sof: int, scan0: int, width: int, height: int, order: List[bytes]) -> bytes:
+    """`data`'s headers with SOF's size set, then the segments `order` with
+    the markers renumbered RST0-RST7 in sequence, then EOI."""
+    if width > 0xFFFF or height > 0xFFFF:
+        raise ValueError(f"{width}x{height} exceeds SOF's 16-bit size")
+    out = bytearray(data[:scan0])
+    out[sof + 5 : sof + 7] = height.to_bytes(2, "big")
+    out[sof + 7 : sof + 9] = width.to_bytes(2, "big")
     pieces = []
     for k, seg in enumerate(order):
         if k:
@@ -123,6 +134,29 @@ def tile_jpeg(data: bytes, nx: int, ny: int) -> bytes:
     out += b"".join(pieces)
     out += b"\xff\xd9"
     return bytes(out)
+
+
+def tile_jpeg(data: bytes, nx: int, ny: int) -> bytes:
+    """The JPEG `data` tiled `nx` times across and `ny` times down."""
+    if nx < 1 or ny < 1:
+        raise ValueError(f"tile_jpeg: nx={nx}, ny={ny}")
+    sof, scan0, seg_w, mcu_h, rows = _segment_rows(data, "tile_jpeg")
+    order = [seg for _ in range(ny) for row in rows for _ in range(nx) for seg in row]
+    return _assemble(data, sof, scan0, seg_w * len(rows[0]) * nx, mcu_h * len(rows) * ny, order)
+
+
+def crop_jpeg(data: bytes, width: int, height: int, x: int = 0, y: int = 0) -> bytes:
+    """The JPEG `data` cut to its `width` x `height` rectangle at pixel
+    (x, y), of whole restart segments: x and width multiples of a
+    segment's width (restart interval x MCU width), y and height of the
+    MCU height."""
+    sof, scan0, seg_w, mcu_h, rows = _segment_rows(data, "crop_jpeg")
+    if (min(width, height) < 1 or min(x, y) < 0 or x % seg_w or width % seg_w or y % mcu_h or height % mcu_h
+            or x + width > seg_w * len(rows[0]) or y + height > mcu_h * len(rows)):
+        raise ValueError(f"crop_jpeg: {width}x{height} at ({x}, {y}) is not whole {seg_w}x{mcu_h} "
+                         f"segments of the {seg_w * len(rows[0])}x{mcu_h * len(rows)} image")
+    order = [seg for row in rows[y // mcu_h : (y + height) // mcu_h] for seg in row[x // seg_w : (x + width) // seg_w]]
+    return _assemble(data, sof, scan0, width, height, order)
 
 
 def _code_table(spec) -> Tuple[np.ndarray, np.ndarray]:

@@ -70,6 +70,7 @@ _SIGNATURES = {
         _P, _P, _P,              # tables, huffval, qsets (zigzag order)
         _P, _P, _P,              # blk, comp, table set per block (host)
         _I, _I, _I, _I,          # B, nq, n_planes, mcus_x
+        _P, _I,                  # geometry table, images (null, 0: one geometry)
         _P, _P, _P, _P,          # planes 0..3
         _P, _P,                  # err, stream
     ],
@@ -117,6 +118,7 @@ _SIGNATURES = {
     ],
 }
 _SIGNATURES["tj_wavefront_occupancy"] = [_I, _I, _I, _I, _I, _P, _P]  # pixels, B, nq, n_planes, n_lut, *ctas, *smem
+_SIGNATURES["tj_wavefront_occupancy_mixed"] = [_I, _I, _I, _I, _I, _P, _P]  # B, nq, n_planes, n_lut, n_geom, *ctas, *smem
 _SIGNATURES["tj_prog_ac_refine"] = _SIGNATURES["tj_prog_ac_first"]
 _SIGNATURES["tj_upsample_color_h2v2_planar"] = _SIGNATURES["tj_upsample_color_h2v2"]
 _SIGNATURES["tj_upsample_color_h2v1_planar"] = _SIGNATURES["tj_upsample_color_h2v1"]
@@ -277,6 +279,8 @@ def call(device: torch.device, entry: str, *args) -> int:
 
 
 WF_THREADS = 128   # threads per CTA of kernels A and 2 (TJ_WF_THREADS)
+GEOM_WORDS = 16    # int32 per image of kernel A's mixed geometry table (TJ_GEOM_WORDS)
+MAX_GEOM = 256     # images per mixed launch of kernel A (TJ_MAX_GEOM)
 
 
 @functools.lru_cache(maxsize=None)

@@ -24,7 +24,12 @@ the norst plan, as the reference's does. The plain version of both
 kernels, ``decode_lanes_plain``, is a lane-vectorized torch state machine
 with the same steps as the Pallas kernel; the wrappers
 ``decode_lanes_to_planes`` and ``decode_lanes_to_coeffs`` take it only
-for tensors on the CPU.
+for tensors on the CPU. Restart plans of several frame sizes that share
+what kernel A takes by value (``launch_key``) combine into one plan
+(``combine_plans``: rows padded to the widest, a geometry row per image,
+one flat output per plane), which kernel A's mixed form decodes in one
+launch (``decode_group_to_rgb``, the stream's launch groups); the
+reference has no counterpart (its stream falls back on mixed chunks).
 
 The TPU layout does not carry over: lanes are a flat [L] axis (no
 [G, 8, K] sublane groups), each lane reads its own row of words from
@@ -131,6 +136,8 @@ class LanePlan:
     norst_every: int = 0                    # MCUs per norst lane (the last may be short)
     lane_seg: Optional[np.ndarray] = None   # int64[L] marker segment of each lane
     seg_first: Optional[np.ndarray] = None  # int64[segments] first lane of each
+    geom: Optional[torch.Tensor] = None     # int32[N, GEOM_WORDS] per-image geometry (several frame sizes)
+    parts: Optional[Tuple["PlanPart", ...]] = None  # the geometry buckets of such a plan
 
     @property
     def n_lanes(self) -> int:
@@ -366,6 +373,139 @@ def build_block_plan(jpegs: Sequence, pin_memory: bool = False) -> LanePlan:
         # The small tensors are copied in; the rows already are pinned.
         plan = plan._map(lambda t: t if t.is_pinned() else t.pin_memory())
     return plan
+
+
+GEOM_WORDS = build.GEOM_WORDS   # int32 per image of a combined plan's geometry table
+MAX_GEOM = build.MAX_GEOM       # images of a plan over several geometries
+
+
+def launch_key(plan: LanePlan, layout: PlaneLayout) -> Tuple:
+    """What kernel A takes by value or stages per CTA, but for the frame
+    size: the block layout (each block's component, plane and place in the
+    MCU, each plane's sampling), the planes' order and the per-block
+    Huffman tables. Restart plans whose keys are equal can share one launch
+    (``combine_plans``); their quantizer sets merge, up to MAX_QSETS."""
+    return layout.blk, tuple(c[:2] for c in layout.comp), layout.out_order, plan.blk_tables
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanPart:
+    """One geometry bucket of a plan over several (``combine_plans``): its
+    block layout, its images [first, first + n) of the plan, and per scan
+    component the byte offset of its [n, plane_h, plane_w] planes in the
+    plan's flat output of that component."""
+
+    layout: PlaneLayout
+    first: int
+    n: int
+    offsets: Tuple[int, ...]
+
+    def end(self, sp: int) -> int:
+        _h, _v, ph, pw = self.layout.comp[sp]
+        return self.offsets[sp] + self.n * ph * pw
+
+    def views(self, flat: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """This bucket's planes in the flat outputs, frame component order."""
+        out = []
+        for sp in self.layout.out_order:
+            _h, _v, ph, pw = self.layout.comp[sp]
+            out.append(flat[sp][self.offsets[sp]:self.end(sp)].view(self.n, ph, pw))
+        return out
+
+
+def merge_for_launch(plans: Sequence[LanePlan]) -> Optional[Tuple[List[np.ndarray], List[np.ndarray]]]:
+    """Whether restart plans of one ``launch_key`` fit one launch of kernel
+    A: their quantizer sets merged (the distinct sets in order of first
+    appearance, and per plan the map from its set index to the merged one),
+    or None where the merge passes MAX_QSETS or several plans pass MAX_GEOM
+    images."""
+    qindex: Dict[bytes, int] = {}
+    qvals: List[np.ndarray] = []
+    remap = []
+    for p in plans:
+        m = []
+        for qs in p.qsets.numpy():
+            idx = qindex.setdefault(qs.tobytes(), len(qvals))
+            if idx == len(qvals):
+                qvals.append(qs)
+            m.append(idx)
+        remap.append(np.asarray(m, np.int32))
+    if len(qvals) > MAX_QSETS or (len(plans) > 1 and sum(p.n_images for p in plans) > MAX_GEOM):
+        return None
+    return qvals, remap
+
+
+def combine_plans(plans: Sequence[LanePlan], layouts: Sequence[PlaneLayout],
+                  pin_memory: bool = False) -> LanePlan:
+    """One restart plan over the lanes of `plans` (``build_block_plan``'s,
+    geometry buckets whose ``launch_key`` is equal; `layouts` their block
+    layouts), so that kernel A decodes them in one launch: the lanes in
+    order, rows padded with 0xFF words to the widest plan's row (what
+    ``build_block_plan`` gives a row of that width), each lane's image and
+    quantizer set renumbered over the whole and the quantizer sets merged
+    (``merge_for_launch``). With more than one plan it adds, per image, a
+    row of the geometry table ``geom`` (int32 [N, GEOM_WORDS]: MCU width, 3
+    zeros, then per scan component the plane's height, width and byte
+    offset / 64 in that component's flat output) and the buckets' places
+    (``parts``). With `pin_memory` every tensor is page-locked. Raises
+    ValueError on plans that cannot share a launch."""
+    key = launch_key(plans[0], layouts[0])
+    if (len(plans) != len(layouts) or any(launch_key(p, lay) != key for p, lay in zip(plans, layouts))
+            or any(p.bit0 is not None for p in plans)):
+        raise ValueError("combine_plans: restart plans of one launch key only")
+    merged = merge_for_launch(plans)
+    if merged is None:
+        raise ValueError(f"combine_plans: over {MAX_QSETS} quantizer sets or {MAX_GEOM} images")
+    qvals, remap = merged
+    mixed = len(plans) > 1
+    p0 = plans[0]
+    L = sum(p.n_lanes for p in plans)
+    W = max(p.n_words for p in plans)
+    N = sum(p.n_images for p in plans)
+
+    def empty(*shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, pin_memory=pin_memory)
+
+    out = dict(bits=empty(L, W), seg_bits=empty(L), lane_m=empty(L), lane_qset=empty(L), lane_meta=empty(L, 3),
+               tables=empty(*p0.tables.shape), huffval=empty(*p0.huffval.shape, dtype=torch.uint8),
+               qsets=empty(len(qvals), *p0.qsets.shape[1:]))
+    if mixed:
+        out["geom"] = empty(N, GEOM_WORDS)
+    bits, seg_bits, lane_m, lane_qset, lane_meta = (out[k].numpy() for k in
+                                                    ("bits", "seg_bits", "lane_m", "lane_qset", "lane_meta"))
+    out["tables"].copy_(p0.tables)
+    out["huffval"].copy_(p0.huffval)
+    out["qsets"].numpy()[...] = np.stack(qvals)
+    geom = out["geom"].numpy() if mixed else None
+    if mixed:
+        geom[...] = 0
+    off = [0] * len(layouts[0].comp)
+    parts, img_qset = [], []
+    l0 = i0 = 0
+    for p, lay, m in zip(plans, layouts, remap):
+        l1, w = l0 + p.n_lanes, p.n_words
+        bits[l0:l1, :w] = p.bits.numpy()
+        bits[l0:l1, w:] = -1
+        seg_bits[l0:l1] = p.seg_bits.numpy()
+        lane_m[l0:l1] = p.lane_m.numpy()
+        lane_qset[l0:l1] = m[p.lane_qset.numpy()]
+        lane_meta[l0:l1] = p.lane_meta.numpy()
+        lane_meta[l0:l1, 0] += i0
+        img_qset += [int(m[q]) for q in p.img_qset]
+        if mixed:
+            parts.append(PlanPart(lay, i0, p.n_images, tuple(off)))
+            rows = geom[i0:i0 + p.n_images]
+            rows[:, 0] = lay.mcus_x
+            for sp, (_h, _v, ph, pw) in enumerate(lay.comp):
+                rows[:, 4 + 3 * sp] = ph
+                rows[:, 5 + 3 * sp] = pw
+                rows[:, 6 + 3 * sp] = (off[sp] + np.arange(p.n_images, dtype=np.int64) * ph * pw) // 64
+                off[sp] += p.n_images * ph * pw
+        l0, i0 = l1, i0 + p.n_images
+    if max(off) // 64 >= 2**31:
+        raise ValueError("combine_plans: outputs over the geometry table's offsets")
+    return LanePlan(**out, blk_tables=p0.blk_tables, n_mcus=max(p.n_mcus for p in plans), n_images=N,
+                    img_qset=tuple(img_qset), parts=tuple(parts) if mixed else None)
 
 
 def plan_from_reference(ref_plan) -> LanePlan:
@@ -777,9 +917,14 @@ def decode_lanes_plain(plan: LanePlan, layout: PlaneLayout, outs: Sequence[torch
     zigzag block with its absolute DC into ``outs[sp][img, block row *
     padded_wb + block column]`` (int32 [N, padded_hb*padded_wb, 64]).
     Writes the per-lane error bits into ``err`` (int32[L]). A norst
-    plan's lanes start at their ``bit0`` with predictors from ``dc0``."""
+    plan's lanes start at their ``bit0`` with predictors from ``dc0``. A
+    plan over several geometries (``plan.geom``, pixels only) places each
+    lane's blocks by its image's row of the table, into the flat
+    ``outs[sp]`` (uint8 [bytes])."""
     if emit not in ("pixels", "coeff"):
         raise ValueError(f"emit {emit!r}")
+    if plan.geom is not None and emit != "pixels":
+        raise ValueError("a plan over several geometries decodes to pixels only")
     dev = plan.bits.device
     L = plan.n_lanes
     window = lane_windows(plan.bits)
@@ -791,6 +936,8 @@ def decode_lanes_plain(plan: LanePlan, layout: PlaneLayout, outs: Sequence[torch
     if emit == "pixels":
         qlane = plan.qsets[plan.lane_qset.to(torch.int64)]      # [L, B, 64]
     r8 = torch.arange(8, device=dev)
+    geom = plan.geom.to(torch.int64)[img] if plan.geom is not None else None   # [L, GEOM_WORDS]
+    mcus_x = geom[:, 0] if geom is not None else layout.mcus_x
 
     # A norst lane starts at its bit0 with primed predictors; a restart
     # lane at bit 0 with zero predictors.
@@ -805,7 +952,7 @@ def decode_lanes_plain(plan: LanePlan, layout: PlaneLayout, outs: Sequence[torch
     for m in range(plan.n_mcus):
         active = m < lane_m
         g = first + m
-        my, mx = g // layout.mcus_x, g % layout.mcus_x
+        my, mx = g // mcus_x, g % mcus_x
         for b, (ci, sp, dv, dh) in enumerate(layout.blk):
             dmc, dvo = tbl[b][0][:17], tbl[b][0][17:]
             amc, avo = tbl[b][1][:17], tbl[b][1][17:]
@@ -846,7 +993,7 @@ def decode_lanes_plain(plan: LanePlan, layout: PlaneLayout, outs: Sequence[torch
             sel = torch.nonzero(active)[:, 0]
             if not sel.numel():
                 continue
-            h, v, ph, pw = layout.comp[sp]
+            h, v, _ph, pw = layout.comp[sp]
             brow, bcol = my[sel] * v + dv, mx[sel] * h + dh
             if emit == "coeff":
                 outs[sp][img[sel], brow * (pw // 8) + bcol] = coef[sel].to(torch.int32)
@@ -856,7 +1003,11 @@ def decode_lanes_plain(plan: LanePlan, layout: PlaneLayout, outs: Sequence[torch
             tile = T.idct8x8_islow(deq)
             rows = (brow * 8)[:, None, None] + r8[None, :, None]
             cols = (bcol * 8)[:, None, None] + r8[None, None, :]
-            outs[sp][img[sel][:, None, None], rows, cols] = tile
+            if geom is None:
+                outs[sp][img[sel][:, None, None], rows, cols] = tile
+            else:
+                at = geom[sel, 6 + 3 * sp] * 64
+                outs[sp][at[:, None, None] + rows * geom[sel, 5 + 3 * sp][:, None, None] + cols] = tile
     trunc = (cur > plan.seg_bits.to(torch.int64) + 7) & (lane_m > 0)
     err.copy_((e | torch.where(trunc, _ERR_TRUNC, 0)).to(torch.int32))
 
@@ -879,13 +1030,21 @@ def _launch_wavefront(plan: LanePlan, layout: PlaneLayout, outs: Sequence[torch.
     """Launch kernel A (emit "pixels") or 2 ("coeff"). The layout and the
     table sets go by value in the kernel's arguments and the quantizers
     stay in the plan's zigzag order, so nothing is copied to the card and
-    the launch never waits for the stream."""
+    the launch never waits for the stream. A plan over several geometries
+    (``plan.geom``) launches kernel A's mixed form into flat outputs
+    (uint8 [bytes], one per scan component; `layout` gives the block
+    layout and sampling), counted as "wavefront_pixels_mixed"."""
     dev = plan.bits.device
     B = plan.blocks_per_mcu
     nq = int(plan.qsets.shape[0])
+    mixed = plan.geom is not None
     name = "wavefront_" + emit
+    if mixed and (emit != "pixels" or tuple(plan.geom.shape) != (plan.n_images, GEOM_WORDS)
+                  or not 0 < plan.n_images <= MAX_GEOM):
+        raise ValueError(f"{name}: a geometry table of [{plan.n_images}, {GEOM_WORDS}] with pixels, "
+                         f"at most {MAX_GEOM} images")
     ptrs = [o.data_ptr() for o in outs] + [0] * (4 - len(outs))
-    out_spec = (torch.uint8, 3) if emit == "pixels" else (torch.int32, 3)
+    out_spec = (torch.uint8, 1 if mixed else 3) if emit == "pixels" else (torch.int32, 3)
     L, W = plan.bits.shape
     if (plan.bit0 is None) != (plan.dc0 is None) or (plan.bit0 is not None and (
             tuple(plan.bit0.shape) != (L,) or tuple(plan.dc0.shape) != (L, 4))):
@@ -897,7 +1056,7 @@ def _launch_wavefront(plan: LanePlan, layout: PlaneLayout, outs: Sequence[torch.
          (plan.lane_m, torch.int32, 1), (plan.lane_qset, torch.int32, 1),
          (plan.lane_meta, torch.int32, 2), (plan.tables, torch.int32, 3),
          (plan.huffval, torch.uint8, 3), (plan.qsets, torch.int32, 3), (err, torch.int32, 1)]
-        + norst + [(o, *out_spec) for o in outs],
+        + norst + [(o, *out_spec) for o in outs] + ([(plan.geom, torch.int32, 2)] if mixed else []),
     )
     sets = table_sets(plan.blk_tables)
     if (B > 10 or len(layout.blk) != B or len(outs) > 4 or max(sets) >= 4
@@ -922,7 +1081,7 @@ def _launch_wavefront(plan: LanePlan, layout: PlaneLayout, outs: Sequence[torch.
             plan.lane_meta.data_ptr(), bit0, dc0, L,
             plan.tables.data_ptr(), plan.huffval.data_ptr(), plan.qsets.data_ptr(),
             blk.ctypes.data, comp.ctypes.data, lut_of.ctypes.data, B, nq, len(outs), layout.mcus_x,
-            *ptrs, err.data_ptr(),
+            plan.geom.data_ptr() if mixed else None, plan.n_images if mixed else 0, *ptrs, err.data_ptr(),
         )
     else:
         rc = build.call(
@@ -933,15 +1092,20 @@ def _launch_wavefront(plan: LanePlan, layout: PlaneLayout, outs: Sequence[torch.
             *ptrs, err.data_ptr(),
         )
     build.raise_on_error(rc, name)
-    build.launched(name)
+    build.launched(name + "_mixed" if mixed else name)
 
 
-def _decode_lanes(plan: LanePlan, geoms: Sequence[ImageGeom], device, plain: bool, emit: str,
+def _decode_lanes(plan: LanePlan, geoms: Optional[Sequence[ImageGeom]], device, plain: bool, emit: str,
                   layout: Optional[PlaneLayout] = None):
     device = torch.device(device)
-    layout = layout or PlaneLayout.of(geoms[0])
     plan = plan.to(device)
-    outs = layout.alloc(len(geoms), device, emit)
+    if plan.parts is not None:
+        layout = plan.parts[0].layout
+        outs = [torch.zeros(plan.parts[-1].end(sp), dtype=torch.uint8, device=device)
+                for sp in range(len(layout.comp))]
+    else:
+        layout = layout or PlaneLayout.of(geoms[0])
+        outs = layout.alloc(len(geoms), device, emit)
     err = torch.zeros(plan.n_lanes, dtype=torch.int32, device=device)
     if plain or device.type == "cpu":
         decode_lanes_plain(plan, layout, outs, err, emit)
@@ -949,18 +1113,23 @@ def _decode_lanes(plan: LanePlan, geoms: Sequence[ImageGeom], device, plain: boo
         _launch_wavefront(plan, layout, outs, err, emit)
     else:
         raise ValueError(f"no decode path for device {device}")
+    if plan.parts is not None:
+        return [part.views(outs) for part in plan.parts], err
     return [outs[sp] for sp in layout.out_order], err
 
 
 def decode_lanes_to_planes(
-    plan: LanePlan, geoms: Sequence[ImageGeom], device, *, plain: bool = False
-) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    plan: LanePlan, geoms: Optional[Sequence[ImageGeom]], device, *, plain: bool = False
+) -> Tuple[List, torch.Tensor]:
     """Decode every lane of `plan` on `device`. Returns (planes, err):
     per component, uint8[N, padded_h, padded_w] sample planes (the
     reference's assemble_pixels_stacked layout, frame component order),
     and the per-lane error bits int32[L]. On a CUDA device this launches
     kernel A; on the CPU it runs the plain version. ``plain=True`` runs
-    the plain version on any device, to hold the kernel to it."""
+    the plain version on any device, to hold the kernel to it. For a plan
+    over several geometries (``combine_plans``; `geoms` unused) one launch
+    decodes every part, and planes holds each part's list of planes in
+    turn: views of one flat output per scan component."""
     return _decode_lanes(plan, geoms, device, plain, "pixels")
 
 
@@ -1019,6 +1188,17 @@ def resolve_rgb_errors(err: torch.Tensor, plan: LanePlan) -> Dict[int, Exception
     return failures_from_err(errs, plan.lane_meta.cpu().numpy())
 
 
+def resolve_group_errors(err: torch.Tensor, plan: LanePlan) -> List[Dict[int, Exception]]:
+    """``resolve_rgb_errors`` per part of a plan over several geometries
+    (one dict for any other plan), each keyed by the image's index in its
+    part."""
+    failures = resolve_rgb_errors(err, plan)
+    if plan.parts is None:
+        return [failures]
+    return [{i - p.first: e for i, e in failures.items() if p.first <= i < p.first + p.n}
+            for p in plan.parts]
+
+
 def decode_plan_to_rgb(plan: LanePlan, jpegs: Sequence, config: DecodeConfig = DEFAULT_CONFIG,
                        device="cuda", packed: bool = False):
     """Kernel A and the color stage for a plan built elsewhere (the
@@ -1039,6 +1219,28 @@ def decode_plan_to_rgb(plan: LanePlan, jpegs: Sequence, config: DecodeConfig = D
                                          [ImageGeom.of(j) for j in jpegs], device)
     rgb = pipeline.transform_planes_batch(frame, planes, config, color=color, packed=packed)
     return rgb, pipeline.layout_of(rgb), err
+
+
+def decode_group_to_rgb(plan: LanePlan, bucket_jpegs: Sequence[Sequence], config: DecodeConfig = DEFAULT_CONFIG,
+                        device="cuda", packed: bool = False):
+    """``decode_plan_to_rgb`` for a launch group: a plan over one or several
+    geometry buckets (``combine_plans``), `bucket_jpegs` the images of each
+    part in order. Kernel A runs once over every part, then the color
+    stage once per part on its views of the flat planes. Returns (rgb per
+    part, layout, err): the layout is the last part's (one where `packed`
+    applies to every part), err the per-lane error bits of the whole plan
+    for ``resolve_group_errors``."""
+    from . import pipeline
+
+    if plan.parts is None:
+        rgb, layout, err = decode_plan_to_rgb(plan, bucket_jpegs[0], config, device, packed)
+        return [rgb], layout, err
+    device = torch.device(device)
+    parts, err = decode_lanes_to_planes(plan.to(device, non_blocking=True), None, device)
+    rgbs = [pipeline.transform_planes_batch(js[0].frame, planes, config, color=bitstream.color_space(js[0]),
+                                            packed=packed)
+            for planes, js in zip(parts, bucket_jpegs)]
+    return rgbs, pipeline.layout_of(rgbs[-1]), err
 
 
 def decode_batch_to_rgb(jpegs: Sequence, config: DecodeConfig = DEFAULT_CONFIG,

@@ -8,23 +8,34 @@ Port of ``tpujpeg/parallel/stream.py``. The stages per chunk of images:
                            appearance, as ``decode_batch_on_device``
                            buckets them) and ``build_block_plan`` one plan
                            per bucket (the native row packer releases the
-                           interpreter lock; parsing does not); on a CUDA
-                           device the planner packs the rows straight into
-                           pinned host memory
-  submit (main thread)     per bucket, copy its plan to the card without
-                           blocking and launch kernel A and the color
-                           kernel on the current stream; then record one
-                           CUDA event; the in-flight record keeps every
-                           pinned plan alive until that event has passed
-  sync   (main thread)     wait for the event and read back each bucket's
-                           per-lane error vector (``resolve_rgb_errors``)
+                           interpreter lock; parsing does not); then the
+                           buckets into launch groups: those whose
+                           ``wavefront.launch_key`` and color space agree
+                           share one while it fits one launch
+                           (``wavefront.merge_for_launch``: quantizer
+                           sets within MAX_QSETS, images within
+                           MAX_GEOM). On a CUDA device the one bucket of
+                           a uniform chunk packs its rows straight into
+                           pinned host memory; a chunk of several buckets
+                           plans them pageable and copies each launch
+                           group's into one pinned plan (``combine_plans``)
+  submit (main thread)     per launch group, copy its plan to the card
+                           without blocking, launch kernel A once (its
+                           mixed form over several buckets) and the color
+                           kernel per bucket on the current stream; then
+                           record one CUDA event; the in-flight record
+                           keeps every pinned plan alive until that event
+                           has passed
+  sync   (main thread)     wait for the event and read back each group's
+                           per-lane error vector, mapped to its buckets'
+                           images (``resolve_group_errors``)
 
 At most `depth` chunks are in flight, and up to `prep_workers + depth`
 chunks are queued for prep. Everything runs on the one current stream, so
 the copies, kernels and readbacks are ordered without further events.
-A chunk of mixed geometry stays on the fused path, one launch chain per
-bucket; the reference's stream falls back on it (the output bytes are
-equal). Chunks the fused path cannot take in any bucket (progressive,
+A chunk of mixed geometry stays on the fused path, one kernel-A launch
+per launch group; the reference's stream falls back on it (the output
+bytes are equal). Chunks the fused path cannot take in any bucket (progressive,
 mixed Huffman tables, oversize or marker-free segments, a plan-time data
 error) fall back whole at sync time
 to ``decode_batch_on_device``, then (where it raises a JpegError) to
@@ -35,7 +46,8 @@ Traced (``spans``: decided once, when the stream starts, on the thread
 that consumes it), each chunk is a unit whose id is its index: the main
 thread's ``stream.prep_wait``, ``stream.submit`` and ``stream.sync`` spans
 (``stream.fallback`` and ``card_wait`` inside the last), and the prep
-threads' ``parse`` and ``plan`` (one ``plan`` per geometry bucket).
+threads' ``parse`` and ``plan`` (one ``plan`` per geometry bucket), and
+an ``a_buckets`` count of the buckets each kernel-A launch decodes.
 """
 
 from __future__ import annotations
@@ -60,19 +72,27 @@ LAYOUTS = ("nhwc", "packed16")
 
 @dataclasses.dataclass
 class _Bucket:
-    """The images of one geometry bucket of a chunk and their fused plan."""
+    """The images of one geometry bucket of a chunk."""
 
     at: List[int]                    # positions in the chunk's members
     jpegs: List
+
+
+@dataclasses.dataclass
+class _Group:
+    """Geometry buckets that share one kernel-A launch, and their plan: the
+    one bucket's, or ``combine_plans`` over them (a part per bucket)."""
+
+    buckets: List[_Bucket]
     plan: wf.LanePlan
 
 
 @dataclasses.dataclass
 class _Unit:
-    """One prepped chunk: fused-path buckets, or a fallback."""
+    """One prepped chunk: fused-path launch groups, or a fallback."""
 
     members: List[int]               # original indices of cleanly parsed images
-    buckets: Optional[List[_Bucket]]  # None -> fallback
+    groups: Optional[List[_Group]]   # None -> fallback
     failures: Dict[int, Exception]   # original index -> parse error
     datas: Optional[List[bytes]] = None  # kept for the fallback only
 
@@ -118,27 +138,52 @@ def _prep_chunk(datas: Sequence[bytes], members: List[int], pin: bool) -> _Unit:
     try:
         if any(j.frame.progressive for j in jpegs):
             raise JpegUnsupportedError("progressive: the fallback decodes it")
-        groups: Dict[tuple, List[int]] = {}
+        by_geometry: Dict[tuple, List[int]] = {}
         for k, j in enumerate(jpegs):
-            groups.setdefault(_bucket_key(j), []).append(k)
-        buckets = []
-        for at in groups.values():
-            sub = [jpegs[k] for k in at]
-            plan = wf.build_block_plan(sub, pin_memory=pin)
+            by_geometry.setdefault(_bucket_key(j), []).append(k)
+        buckets = [_Bucket(at, [jpegs[k] for k in at]) for at in by_geometry.values()]
+        alone = len(buckets) == 1
+        plans = []
+        for b in buckets:
+            plan = wf.build_block_plan(b.jpegs, pin_memory=pin and alone)
             if int(plan.qsets.shape[0]) > wf.MAX_QSETS:
                 raise JpegUnsupportedError("too many quantizer sets for the fused path")
-            buckets.append(_Bucket(at, sub, plan))
+            plans.append(plan)
     except JpegError:
         # Outside the fused path in some bucket, or a plan-time data error
         # that would poison a shared plan: the fallback isolates images.
         return _Unit(ok, None, failures, [datas[i] for i in ok])
-    return _Unit(ok, buckets, failures)
+    if alone:
+        return _Unit(ok, [_Group(buckets, plans[0])], failures)
+    return _Unit(ok, _launch_groups(buckets, plans, pin), failures)
+
+
+def _launch_groups(buckets: List[_Bucket], plans: List[wf.LanePlan], pin: bool) -> List[_Group]:
+    """The buckets in launch groups, in order of first appearance: a bucket
+    joins the newest group of its launch key and color space while the
+    group still fits one launch (``wavefront.merge_for_launch``), else it
+    opens a new group. Each group's plan is ``combine_plans`` of its
+    buckets', page-locked with `pin`."""
+    layouts = [wf.PlaneLayout.of(wf.ImageGeom.of(b.jpegs[0])) for b in buckets]
+    members: List[List[int]] = []
+    newest: Dict[tuple, int] = {}
+    for i, (b, plan, layout) in enumerate(zip(buckets, plans, layouts)):
+        key = (wf.launch_key(plan, layout), bitstream.color_space(b.jpegs[0]))
+        g = newest.get(key)
+        if g is not None and wf.merge_for_launch([plans[j] for j in members[g] + [i]]) is not None:
+            members[g].append(i)
+            continue
+        newest[key] = len(members)
+        members.append([i])
+    return [_Group([buckets[i] for i in idx],
+                   wf.combine_plans([plans[i] for i in idx], [layouts[i] for i in idx], pin_memory=pin))
+            for idx in members]
 
 
 @dataclasses.dataclass
 class _InFlight:
     unit: _Unit
-    outs: List = dataclasses.field(default_factory=list)  # (rgb, err) per bucket
+    outs: List = dataclasses.field(default_factory=list)  # (rgb per bucket, err) per group
     layout: str = "nhwc"
     done: Optional[torch.cuda.Event] = None  # passed once the unit's pinned plans are free
 
@@ -146,17 +191,19 @@ class _InFlight:
 @spans.spanned(spans.SUBMIT)
 def _submit(unit: _Unit, config: DecodeConfig, device: torch.device, packed: bool) -> _InFlight:
     """Main-thread stage: asynchronous copies and launches of the fused
-    chain, bucket by bucket. The chunk has one layout: packed16 only where
-    it applies to every bucket."""
-    if unit.buckets is None:
+    chain, launch group by launch group. The chunk has one layout: packed16
+    only where it applies to every bucket."""
+    if unit.groups is None:
         return _InFlight(unit)  # the fallback decodes at sync time
     packed = packed and all(
         pipeline.packed_layout_applies(b.jpegs[0].frame, config, bitstream.color_space(b.jpegs[0]))
-        for b in unit.buckets)
+        for g in unit.groups for b in g.buckets)
     outs, layout = [], "nhwc"
-    for b in unit.buckets:
-        rgb, layout, err = wf.decode_plan_to_rgb(b.plan, b.jpegs, config, device, packed=packed)
-        outs.append((rgb, err))
+    for g in unit.groups:
+        rgbs, layout, err = wf.decode_group_to_rgb(g.plan, [b.jpegs for b in g.buckets], config, device,
+                                                   packed=packed)
+        spans.count(spans.A_BUCKETS, len(g.buckets))
+        outs.append((rgbs, err))
     done = None
     if device.type == "cuda":
         done = torch.cuda.Event()
@@ -170,7 +217,7 @@ def _sync(flight: _InFlight, config: DecodeConfig, device: torch.device) -> Stre
     failures = dict(unit.failures)
     members = list(unit.members) + list(unit.failures)
     images: List[Optional[object]] = [None] * len(unit.members)
-    if unit.buckets is None:
+    if unit.groups is None:
         if unit.datas:
             # The device ladder first; host entropy per image where it
             # refuses the chunk as a whole. A kernel or card failure
@@ -191,13 +238,13 @@ def _sync(flight: _InFlight, config: DecodeConfig, device: torch.device) -> Stre
     if flight.done is not None:
         with spans.span(spans.CARD_WAIT):
             flight.done.synchronize()
-    for b, (rgb, err) in zip(unit.buckets, flight.outs):
-        local = wf.resolve_rgb_errors(err, b.plan)
-        for li, k in enumerate(b.at):
-            if li in local:
-                failures[unit.members[k]] = local[li]
-            else:
-                images[k] = rgb[li]
+    for g, (rgbs, err) in zip(unit.groups, flight.outs):
+        for b, rgb, local in zip(g.buckets, rgbs, wf.resolve_group_errors(err, g.plan)):
+            for li, k in enumerate(b.at):
+                if li in local:
+                    failures[unit.members[k]] = local[li]
+                else:
+                    images[k] = rgb[li]
     images += [None] * len(unit.failures)
     return StreamChunk(members, images, failures, "wavefront-fused", flight.layout)
 

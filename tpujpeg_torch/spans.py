@@ -33,9 +33,11 @@ Span names, from the entries down: ``tpujpeg_torch.decode`` (one per
 (``decode_batch_on_device``, ``decode_batch``), ``tpujpeg_torch.parse``,
 ``tpujpeg_torch.plan`` (the planners), ``tpujpeg_torch.copy_in`` (plans and
 masks copied to the device) and ``tpujpeg_torch.card_wait`` (every host
-block on the card). Counters: ``launch`` (every kernel launch), and for each
-marker-free plan split for a card ``norst_lanes`` (its lanes) and
-``norst_wave`` (the lanes one wave of kernel A holds there).
+block on the card). Counters: ``launch`` (every kernel launch),
+``a_buckets`` (for each kernel-A launch of a stream chunk, the geometry
+buckets it decodes), and for each marker-free plan split for a card
+``norst_lanes`` (its lanes) and ``norst_wave`` (the lanes one wave of
+kernel A holds there).
 """
 
 from __future__ import annotations
@@ -66,6 +68,7 @@ PLAN = "tpujpeg_torch.plan"
 COPY_IN = "tpujpeg_torch.copy_in"
 CARD_WAIT = "tpujpeg_torch.card_wait"
 LAUNCH = "launch"
+A_BUCKETS = "a_buckets"
 NORST_LANES = "norst_lanes"
 NORST_WAVE = "norst_wave"
 

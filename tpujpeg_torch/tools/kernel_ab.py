@@ -24,8 +24,13 @@ chip_smoke.py). Kernel C (upsample_color_h2v1), the 4:2:2 planar kernel
 (upsample_color_h2v1_packed) and kernel D (color_444) run on kernel A's
 planes of 32 copies of their 384x512 fixture (/422, /444) and of the
 2048^2 one (/422_2048, /444_2048), and on random planes of 32 x 2048^2
-luma (/random). The fixtures are read from this tool's checkout, so
-every tree gets the same inputs. It uses only entry points that every
+luma (/random). Kernel A also runs on one stream chunk of the
+imagenet_shard sizes (32 images, 13 x 512^2, 10 x 768x512, 6 x 1024^2,
+3 x 2048^2, made with tests/corpus.py): one launch per geometry bucket
+(/shard_buckets), and where the tree has it, one launch of its mixed form
+over the whole chunk (/shard_mixed, checked equal to the bucket launches,
+with its CTAs per SM and shared memory). The fixtures are read from this
+tool's checkout, so every tree gets the same inputs. It uses only entry points that every
 checkout since the sharded giant path (fixtures/tile.py) has.
 
 Every kernel is timed two ways in the same process. ``ms``: the card
@@ -69,6 +74,21 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(os.path.dirname(HERE), "fixtures")
 BATCH = 32
+
+
+# One stream chunk of jpegbench/configs/imagenet_shard.json: 32 images of its
+# 4:3:2:1 cycle of sizes, (width, height, images) per geometry bucket.
+SHARD_CHUNK = ((512, 512, 13), (768, 512, 10), (1024, 1024, 6), (2048, 2048, 3))
+
+
+def shard_chunk():
+    """The bytes of SHARD_CHUNK's images per bucket, q85 4:2:0, a restart
+    every 4 MCUs, from this tool's checkout's tests/corpus.py (PIL)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(HERE)), "tests"))
+    from corpus import make_jpeg
+
+    return [[make_jpeg(w, h, seed=100 * k + i, quality=85, subsampling=2, restart_blocks=4) for i in range(n)]
+            for k, (w, h, n) in enumerate(SHARD_CHUNK)]
 
 
 def _digest(tensors) -> str:
@@ -226,6 +246,48 @@ def run_one(tree: str, reps: int) -> dict:
             build.raise_on_error(occ(pixels, plan.blocks_per_mcu, int(plan.qsets.shape[0]), len(layout.comp),
                                      n_lut, ctypes.addressof(ctas), ctypes.addressof(smem)), "occupancy")
             occupancy[kname] = {"ctas_per_sm": ctas.value, "smem_bytes": smem.value}
+
+    # Kernel A on a stream chunk of the imagenet_shard sizes: one launch
+    # per geometry bucket (/shard_buckets, the four summed), and where the
+    # tree has the mixed form, one launch over the four (/shard_mixed),
+    # held equal to the bucket launches here.
+    buckets = [[tpujpeg_torch.bitstream.parse(d) for d in datas] for datas in shard_chunk()]
+    cplans = [wf.build_block_plan(js) for js in buckets]
+    bplans = [p.to(dev) for p in cplans]
+    blays = [wf.PlaneLayout.of(wf.ImageGeom.of(js[0])) for js in buckets]
+    bouts = [(lay.alloc(len(js), dev), torch.zeros(p.n_lanes, dtype=torch.int32, device=dev))
+             for js, p, lay in zip(buckets, bplans, blays)]
+
+    def bucket_launches():
+        for p, lay, (planes, e) in zip(bplans, blays, bouts):
+            wf._launch_wavefront(p, lay, planes, e)
+
+    timed("wavefront_pixels/shard_buckets", bucket_launches)
+    digests["wavefront_pixels/shard_buckets"] = _digest([t for planes, e in bouts for t in planes + [e]])
+    if hasattr(wf, "combine_plans"):
+        mixed = wf.combine_plans(cplans, blays).to(dev)
+        mouts = [torch.zeros(mixed.parts[-1].end(sp), dtype=torch.uint8, device=dev)
+                 for sp in range(len(blays[0].comp))]
+        merr = torch.zeros(mixed.n_lanes, dtype=torch.int32, device=dev)
+        timed("wavefront_pixels_mixed/shard_mixed", lambda: wf._launch_wavefront(mixed, blays[0], mouts, merr))
+        torch.cuda.synchronize()
+        same = torch.equal(merr, torch.cat([e for _planes, e in bouts])) and all(
+            torch.equal(a, b) for part, (planes, _e) in zip(mixed.parts, bouts)
+            for a, b in zip(part.views(mouts), [planes[sp] for sp in part.layout.out_order]))
+        if not same:
+            raise RuntimeError("the mixed launch differs from the bucket launches")
+        mocc = getattr(build.get_lib(), "tj_wavefront_occupancy_mixed", None)
+        if mocc is not None:
+            import ctypes
+
+            ctas, smem = ctypes.c_int(0), ctypes.c_int(0)
+            build.raise_on_error(mocc(mixed.blocks_per_mcu, int(mixed.qsets.shape[0]), len(blays[0].comp),
+                                      max(wf.table_sets(mixed.blk_tables)) + 1, mixed.n_images,
+                                      ctypes.addressof(ctas), ctypes.addressof(smem)), "occupancy")
+            occupancy["wavefront_pixels_mixed"] = {"ctas_per_sm": ctas.value, "smem_bytes": smem.value,
+                                                   "images": mixed.n_images, "lanes": mixed.n_lanes}
+        del mixed, mouts, merr
+    del bplans, bouts
 
     bound_ms = {}
 
