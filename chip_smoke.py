@@ -76,8 +76,8 @@ of tpujpeg/. Phases, one JSON line each:
    each alternated, the first of each a warm-up. Then one chunk of the
    imagenet_shard sizes (SHARD_CHUNK: 13 x 512^2, 10 x 768x512, 6 x
    1024^2, 3 x 2048^2, crops of the 2048x2048 fixture by
-   fixtures/tile.py's crop_jpeg): its four geometry buckets' plans
-   combined (combine_plans, pinned) decode in one launch of kernel A's
+   fixtures/tile.py's crop_jpeg): its four geometry buckets, planned as
+   one launch group (plan_launches, pinned), decode in one launch of kernel A's
    mixed form and no other launch, equal (planes and error bits) to the
    plain version of the combined plan and to each bucket's own launch;
    the same 32 images as one decode_stream chunk (packed16) launch the
@@ -92,7 +92,9 @@ of tpujpeg/. Phases, one JSON line each:
    fixture on the card, the norst ones on kernel A as
    "wavefront-skeleton", but the marker-free progressive one, which
    takes host entropy as in the reference; decode_batch is host entropy
-   throughout), and the kernels that ran are exactly the rungs' kernels.
+   throughout), and the kernels that ran are exactly the rungs' kernels
+   (kernel A's mixed form for the fused fixtures of several sizes that
+   share a launch group).
 10. kernel_timing: each kernel and its plain version, timed with CUDA
    events on the main, staged and progressive paths' inputs (a kernel's
    window opens on a queue the card's sleep kept full, so it holds no
@@ -1022,7 +1024,7 @@ def main() -> int:
     t0 = time.perf_counter()
     units = [stream_mod._prep(sdatas, m, True) for m in chunks]
     t_prep = time.perf_counter() - t0
-    dev_plans = [(g.plan.to(dev), [b.jpegs for b in g.buckets]) for u in units for g in u.groups]
+    dev_plans = [(g.plan.to(dev), g.jpegs) for u in units for g in u.groups]
     # The same stage split: parse, then the plan into pageable and into
     # pinned memory (one thread, 4 chunks).
     t0 = time.perf_counter()
@@ -1086,11 +1088,12 @@ def main() -> int:
     by_size = {}
     for md, mwh in zip(mdatas, msizes):
         by_size.setdefault(mwh, []).append(parse(md))
-    mbuckets = list(by_size.values())
+    mgroups, mrefused = wf.plan_launches([j for js in by_size.values() for j in js], pin_memory=True)
+    check(len(mgroups) == 1 and not mrefused, f"shard chunk: {len(mgroups)} launch groups, refused {mrefused}")
+    mbuckets, combined = mgroups[0].jpegs, mgroups[0].plan
+    check([len(js) for js in mbuckets] == [len(js) for js in by_size.values()], "shard chunk: buckets differ")
     mplans = [wf.build_block_plan(js) for js in mbuckets]
-    mlays = [wf.PlaneLayout.of(wf.ImageGeom.of(js[0])) for js in mbuckets]
-    check(len({wf.launch_key(p, lay) for p, lay in zip(mplans, mlays)}) == 1, "shard chunk: launch keys differ")
-    combined = wf.combine_plans(mplans, mlays, pin_memory=True)
+    mlays = [part.layout for part in combined.parts]
     build.LAUNCHES.clear()
     mparts, merr = wf.decode_lanes_to_planes(combined.to(dev, non_blocking=True), None, dev)
     torch.cuda.synchronize()
@@ -1142,11 +1145,13 @@ def main() -> int:
     # The rung each fixture must take on the device ladder: its path's
     # kernels (kernel A on the norst plan for the norst ones), kernel 2 per
     # scan for the multi-scan file, host entropy only for the marker-free
-    # progressive stream.
+    # progressive stream. The fused fixtures of several sizes that share a
+    # launch group take kernel A's mixed form.
     ladder = {n: BATCH_RUNG.get(n, PATH_RUNG.get(manifest["fixtures"][n]["path"])) for n in names}
     for fn, want_engines, want_kernels in (
             (tpujpeg_torch.decode_batch_on_device, ladder,
-             {"wavefront_pixels", "wavefront_coeff", "dequant_idct_islow", "prog_dc_first", "prog_ac_first",
+             {"wavefront_pixels", "wavefront_pixels_mixed", "wavefront_coeff", "dequant_idct_islow",
+              "prog_dc_first", "prog_ac_first",
               "prog_ac_refine", "upsample_color_h2v2", "upsample_color_h2v1", "color_444"}),
             (tpujpeg_torch.decode_batch, {n: "native" for n in names},
              {"dequant_idct_islow", "upsample_color_h2v2", "upsample_color_h2v1", "color_444"})):
@@ -1219,7 +1224,7 @@ def main() -> int:
         bound=bound(int(cd.seg_bits.to(torch.int64).sum()) // 8 + sum(t.numel() for t in m_flat),
                     m_symbols * OPS_SYMBOL + m_blocks * OPS_IDCT_BLOCK),
     )
-    del cd, m_flat, m_err, b_dev, combined, mplans
+    del cd, m_flat, m_err, b_dev, combined, mplans, mgroups
 
     coef_k, err2_k, coef_p, err2_p = lanes(plan, geoms, wf.decode_lanes_to_coeffs)
     err_2 = max(max_abs(torch, a, b) for a, b in zip(coef_k, coef_p))
@@ -1537,6 +1542,29 @@ def main() -> int:
             return out
         return call
 
+    def a_recorded(rec):
+        """wf._launch_wavefront, with each kernel-A launch's plan, layout
+        and copies of its outputs and error bits appended to
+        rec["wavefront_pixels"]."""
+        def call(plan_a, layout_a, outs, err, emit="pixels"):
+            real_launch(plan_a, layout_a, outs, err, emit)
+            if emit == "pixels":
+                rec["wavefront_pixels"].append((plan_a, layout_a, [o.clone() for o in outs], err.clone()))
+        return call
+
+    def a_vs_plain(rec, where):
+        """The largest difference of the recorded kernel-A launches from
+        their plain version on the same plans; their error bits must be
+        equal."""
+        worst = 0
+        for plan_a, layout_a, outs_k, err_k in rec["wavefront_pixels"]:
+            outs_p, err_p = [torch.zeros_like(o) for o in outs_k], torch.zeros_like(err_k)
+            wf.decode_lanes_plain(plan_a, layout_a, outs_p, err_p)
+            check(torch.equal(err_k, err_p), f"{where}: kernel A's error bits != plain")
+            worst = max([worst] + [max_abs(torch, x, y) for x, y in zip(outs_k, outs_p)])
+        return worst
+
+    real_launch = wf._launch_wavefront
     h2v2 = pipeline._H2V2
     b_kern, b_plain = color_fns["upsample_color_h2v2"]
 
@@ -1725,7 +1753,7 @@ def main() -> int:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rec = collections.defaultdict(list)
-    with mock.patch.object(wf, "decode_lanes_to_planes", recorded(rec, "wavefront_pixels", wf.decode_lanes_to_planes)), \
+    with mock.patch.object(wf, "_launch_wavefront", a_recorded(rec)), \
             mock.patch.dict(pipeline._NHWC_KERNELS, {h2v2: recorded(rec, "upsample_color_h2v2", b_kern)}):
         drgbs, failures = wf.decode_batch_to_rgb_sharded(djpegs, config, mesh=shard_mesh)
     torch.cuda.synchronize()
@@ -1743,12 +1771,7 @@ def main() -> int:
     # inputs (the comparison's launches are not counted).
     check({k: len(v) for k, v in rec.items()} == {"wavefront_pixels": SHARDS, "upsample_color_h2v2": SHARDS},
           f"data parallel: recorded {list(map(len, rec.values()))}")
-    dp_err = {"wavefront_pixels": 0}
-    for a, kw, (planes_k, err_k) in rec["wavefront_pixels"]:
-        planes_p, err_p = wf.decode_lanes_to_planes(*a, **{**kw, "plain": True})
-        check(torch.equal(err_k, err_p), "data parallel: kernel A's error bits != plain")
-        dp_err["wavefront_pixels"] = max([dp_err["wavefront_pixels"]]
-                                         + [max_abs(torch, x, y) for x, y in zip(planes_k, planes_p)])
+    dp_err = {"wavefront_pixels": a_vs_plain(rec, "data parallel")}
     dp_err["upsample_color_h2v2"] = max(max_abs(torch, out, b_plain(*a)) for a, _kw, out in rec["upsample_color_h2v2"])
     check(not any(dp_err.values()), f"data parallel: kernels != plain {dp_err}")
     for k, e in dp_err.items():
@@ -1861,7 +1884,7 @@ def main() -> int:
     build.LAUNCHES.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with mock.patch.object(wf, "decode_lanes_to_planes", recorded(rec, "wavefront_pixels", wf.decode_lanes_to_planes)), \
+    with mock.patch.object(wf, "_launch_wavefront", a_recorded(rec)), \
             mock.patch.object(idct, "dequant_idct_islow", recorded(rec, "dequant_idct_islow", idct.dequant_idct_islow)), \
             mock.patch.dict(pipeline._NHWC_KERNELS, {h2v2: recorded(rec, "upsample_color_h2v2", b_kern)}):
         dres = graft_entry.dryrun_multichip(SHARDS)
@@ -1882,12 +1905,7 @@ def main() -> int:
           f"dryrun_multichip: {dres['shards']} shards on {dres['devices']} devices")
     for k, n in d_launches.items():
         launches[k] += n
-    d_err = {"wavefront_pixels": 0}
-    for a, kw, (planes_k, err_k) in rec["wavefront_pixels"]:
-        planes_p, err_p = wf.decode_lanes_to_planes(*a, **{**kw, "plain": True})
-        check(torch.equal(err_k, err_p), "dryrun: kernel A's error bits != plain")
-        d_err["wavefront_pixels"] = max([d_err["wavefront_pixels"]]
-                                        + [max_abs(torch, x, y) for x, y in zip(planes_k, planes_p)])
+    d_err = {"wavefront_pixels": a_vs_plain(rec, "dryrun")}
     d_err["dequant_idct_islow"] = max(max_abs(torch, out, idct.dequant_idct_islow_plain(*a))
                                       for a, _kw, out in rec["dequant_idct_islow"])
     d_err["upsample_color_h2v2"] = max(max_abs(torch, out, b_plain(*a)) for a, _kw, out in rec["upsample_color_h2v2"])

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from corpus import encode, make_image, make_jpeg, make_multiscan_jpeg, pil_decode
+from test_torch_cuda import zero_payload
 
 import tpujpeg
 
@@ -147,6 +148,32 @@ def test_rejected_bucket_splits_and_keeps_its_members_on_the_device():
         np.testing.assert_array_equal(img, pil_decode(d))
     assert [s.entropy_engine for s in res.stats] == [
         "wavefront-fused", "wavefront-skeleton", "wavefront-fused", "wavefront-coeff", "wavefront-fused"]
+
+
+def test_ladder_decodes_mixed_geometry_in_launch_groups(monkeypatch):
+    """Baseline images of four geometry buckets: the three 4:2:0 buckets
+    share one call of the RGB entry (one kernel-A launch on a card), the
+    4:2:2 bucket takes its own; a corrupt member of the shared launch fails
+    alone, and every other image equals PIL."""
+    seen = []
+    real = wf.decode_group_to_rgb
+
+    def spy(plan, bucket_jpegs, *a, **k):
+        seen.append([len(js) for js in bucket_jpegs])
+        return real(plan, bucket_jpegs, *a, **k)
+
+    monkeypatch.setattr(wf, "decode_group_to_rgb", spy)
+    datas = [make_jpeg(64, 48, seed=1, subsampling=2, restart_blocks=4),
+             make_jpeg(48, 32, seed=2, subsampling=2, restart_blocks=4),
+             zero_payload(make_jpeg(64, 48, seed=3, subsampling=2, restart_blocks=4)),
+             make_jpeg(48, 32, seed=4, subsampling=1, restart_blocks=4),
+             make_jpeg(32, 64, seed=5, subsampling=2, restart_blocks=4)]
+    res = tpujpeg_torch.decode_batch_on_device(datas, device="cpu")
+    assert seen == [[2, 1, 1], [1]]
+    assert set(res.errors) == {2} and isinstance(res.errors[2], tpujpeg_torch.JpegError)
+    for i in (0, 1, 3, 4):
+        np.testing.assert_array_equal(res.images[i], pil_decode(datas[i]))
+        assert res.stats[i].entropy_engine == "wavefront-fused"
 
 
 def test_plan_key_admits_what_the_planner_takes_alone():

@@ -1001,7 +1001,33 @@ def test_mixed_kernel_a_equals_bucket_launches_and_plain(cuda):
         for a, b, c in zip(got, want, alone):
             assert torch.equal(a, b) and torch.equal(a, c)
         lane0 += plan.n_lanes
-    assert [sorted(f) for f in wf.resolve_group_errors(err, combined)] == [[], [], [1], []]
+    zeroed = SHARD_CYCLE[0][2] + SHARD_CYCLE[1][2] + 1   # image (2, 1) in plan order
+    assert sorted(wf.resolve_rgb_errors(err, combined)) == [zeroed]
+
+
+def test_ladder_launches_kernel_a_once_per_launch_group(cuda):
+    """decode_batch_on_device over a shard-like batch and a 4:2:2 image:
+    the four 4:2:0 geometry buckets share one launch of kernel A's mixed
+    form, the 4:2:2 bucket takes one of the one-geometry form, and the
+    color kernel runs once per bucket; every image equals the one-geometry
+    decode of its own bucket (decode_batch_to_rgb)."""
+    buckets = _shard_datas() + [[_read("422_2048")]]
+    datas = [d for bucket in buckets for d in bucket]
+    cfg = tpujpeg_torch.DecodeConfig(to_numpy=False)
+    before = dict(build.LAUNCHES)
+    res = tpujpeg_torch.decode_batch_on_device(datas, cfg, device=cuda)
+    torch.cuda.synchronize()
+    launched = {k: build.LAUNCHES[k] - before.get(k, 0) for k in build.LAUNCHES}
+    assert not res.errors and {s.entropy_engine for s in res.stats} == {"wavefront-fused"}
+    assert launched["wavefront_pixels_mixed"] == 1 and launched["wavefront_pixels"] == 1
+    assert launched["upsample_color_h2v2"] == len(SHARD_CYCLE) and launched["upsample_color_h2v1"] == 1
+    i = 0
+    for bucket in buckets:
+        want, failures = wf.decode_batch_to_rgb([tpujpeg_torch.bitstream.parse(d) for d in bucket], device=cuda)
+        assert not failures
+        for k in range(len(bucket)):
+            assert torch.equal(res.images[i], want[k])
+            i += 1
 
 
 def test_stream_launches_kernel_a_once_per_mixed_chunk(cuda):

@@ -404,8 +404,8 @@ def test_card_plan_decodes_like_pil(name):
     jpeg = bitstream.parse(data)
     plan = wf.build_norst_plan(jpeg, wave=lambda blk: 4096)
     assert plan.n_words < 32
-    rgb, _layout, err = wf.decode_plan_to_rgb(plan, [jpeg], device="cpu")
-    assert not err.any()
+    (rgb,), _layout, err = wf.decode_group_to_rgb(plan, [[jpeg]], device="cpu")
+    assert not err.any() and wf.resolve_rgb_errors(err, plan) == {}
     np.testing.assert_array_equal(rgb[0].numpy(), pil_decode(data))
 
 

@@ -8,6 +8,7 @@ geometry bucket, against PIL and the benchmark's plain reference
 forms of decode_all_scans_to_rgb_batch (packed, defer_errors, layout) and
 decode_batch_to_rgb (defer_errors). Tolerance 0."""
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -313,14 +314,16 @@ def _zero_segment(data: bytes, k: int) -> bytes:
 
 
 def _groups_of(monkeypatch):
-    """Spy on the stream's launches: per call, the geometry buckets' sizes
-    of its plan (one part where the plan has none)."""
+    """Spy on the one RGB entry of restart plans: per call, the geometry
+    buckets' sizes of its plan; kernel A's mixed form (a geometry table)
+    exactly where the plan has several parts."""
     seen = []
     real = wf.decode_group_to_rgb
 
     def spy(plan, bucket_jpegs, *a, **k):
         seen.append([len(js) for js in bucket_jpegs])
-        assert (plan.parts is None) == (len(bucket_jpegs) == 1)
+        assert (plan.geom is None) == (len(bucket_jpegs) == 1)
+        assert plan.parts is None or [p.n for p in plan.parts] == seen[-1]
         return real(plan, bucket_jpegs, *a, **k)
 
     monkeypatch.setattr(wf, "decode_group_to_rgb", spy)
@@ -352,9 +355,46 @@ def test_combined_plan_through_the_plain_version_equals_bucket_decodes():
         for a, b in zip(got, want):
             np.testing.assert_array_equal(a.numpy(), b.numpy())
         lane0 += plan.n_lanes
-    failures = wf.resolve_group_errors(err, combined)
-    assert [sorted(f) for f in failures] == [[1], [], []]
-    assert isinstance(failures[0][1], tpujpeg_torch.JpegError)
+    failures = wf.resolve_rgb_errors(err, combined)
+    assert sorted(failures) == [1]   # image 1 of the plan: bucket 0's second
+    assert isinstance(failures[1], tpujpeg_torch.JpegError)
+    (one,) = wf.combine_plans(plans[2:], layouts[2:]).parts
+    assert (one.first, one.n, one.offsets) == (0, 2, (0, 0, 0))
+
+
+def _fields_equal(a, b):
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        assert (torch.equal(x, y) if isinstance(x, torch.Tensor) else
+                np.array_equal(x, y) if isinstance(x, np.ndarray) else x == y), f.name
+
+
+def test_plan_launches_groups_and_refusals_on_a_mixed_chunk():
+    """The stream's and the ladder's planner on a chunk of mixed geometry:
+    buckets by geometry, sampling and color space in order of first
+    appearance; the three 4:2:0 buckets in one launch group whose plan is
+    combine_plans of their own, the 4:2:2 bucket in a group of its own
+    that keeps its bucket's plan (nothing is pinned on the CPU); a bucket
+    of mixed Huffman tables and a marker-free scan over the row cap come
+    back refused, as their positions. A uniform chunk is one group whose
+    plan is its bucket's."""
+    datas = [_tiny(16, 16, 1), _tiny(32, 16, 2), _tiny(16, 16, 3), _tiny(32, 16, 4, subsampling=1),
+             _tiny(48, 16, 5, optimize=True), _tiny(16, 32, 6), make_jpeg(128, 96, seed=1, subsampling=2),
+             _tiny(48, 16, 7)]
+    jpegs = [bitstream.parse(d) for d in datas]
+    groups, refused = wf.plan_launches(jpegs)
+    assert [g.at for g in groups] == [[[0, 2], [1], [5]], [[3]]] and refused == [[4, 7], [6]]
+    assert [g.positions for g in groups] == [[0, 2, 1, 5], [3]]
+    assert [[[id(j) for j in js] for js in g.jpegs] for g in groups] == \
+        [[[id(jpegs[k]) for k in at] for at in g.at] for g in groups]
+    plans = [wf.build_block_plan([jpegs[k] for k in at]) for at in ([0, 2], [1], [5], [3])]
+    layouts = [wf.PlaneLayout.of(wf.ImageGeom.of(jpegs[k])) for k in (0, 1, 5, 3)]
+    _fields_equal(groups[0].plan, wf.combine_plans(plans[:3], layouts[:3]))
+    _fields_equal(groups[1].plan, plans[3])
+    (uniform,), none = wf.plan_launches([jpegs[0], jpegs[2]])
+    assert none == [] and uniform.at == [[0, 1]] and uniform.plan.parts is None
+    _fields_equal(uniform.plan, plans[0])
+    assert wf.plan_launches([]) == ([], [])
 
 
 def test_a_corrupt_segment_in_a_launch_group_fails_only_its_image(monkeypatch):

@@ -24,12 +24,15 @@ the norst plan, as the reference's does. The plain version of both
 kernels, ``decode_lanes_plain``, is a lane-vectorized torch state machine
 with the same steps as the Pallas kernel; the wrappers
 ``decode_lanes_to_planes`` and ``decode_lanes_to_coeffs`` take it only
-for tensors on the CPU. Restart plans of several frame sizes that share
-what kernel A takes by value (``launch_key``) combine into one plan
+for tensors on the CPU. ``plan_launches`` plans the stream's and the batch
+ladder's kernel-A launches: geometry buckets (``bucket_key``), a restart
+plan each, and buckets that share what kernel A takes by value
+(``launch_key``) combined into one plan for its mixed form
 (``combine_plans``: rows padded to the widest, a geometry row per image,
-one flat output per plane), which kernel A's mixed form decodes in one
-launch (``decode_group_to_rgb``, the stream's launch groups); the
-reference has no counterpart (its stream falls back on mixed chunks).
+one flat output per plane); every restart or norst plan reaches RGB
+through ``decode_group_to_rgb`` and its errors through
+``resolve_rgb_errors``. The reference has no launch groups (its stream
+falls back on mixed chunks).
 
 The TPU layout does not carry over: lanes are a flat [L] axis (no
 [G, 8, K] sublane groups), each lane reads its own row of words from
@@ -58,11 +61,11 @@ import torch
 from .. import bitstream, spans
 from .. import transform as T
 from ..config import DEFAULT_CONFIG, DecodeConfig
-from ..errors import JpegHuffmanError, JpegSyntaxError, JpegTruncatedError, JpegUnsupportedError
+from ..errors import JpegError, JpegHuffmanError, JpegSyntaxError, JpegTruncatedError, JpegUnsupportedError
 from ..native import entropy as native_entropy
 from . import build
 
-MAX_WORDS = 512   # per-lane row cap, the reference's (lifted by a later slice)
+MAX_WORDS = 512   # per-lane row cap, the reference's (a longer segment takes the norst plan)
 MAX_QSETS = 8     # distinct quantizer sets per batch, the reference's
 
 _ERR_BADCODE = 1
@@ -137,7 +140,7 @@ class LanePlan:
     lane_seg: Optional[np.ndarray] = None   # int64[L] marker segment of each lane
     seg_first: Optional[np.ndarray] = None  # int64[segments] first lane of each
     geom: Optional[torch.Tensor] = None     # int32[N, GEOM_WORDS] per-image geometry (several frame sizes)
-    parts: Optional[Tuple["PlanPart", ...]] = None  # the geometry buckets of such a plan
+    parts: Optional[Tuple["PlanPart", ...]] = None  # the geometry buckets of a combine_plans plan
 
     @property
     def n_lanes(self) -> int:
@@ -302,7 +305,7 @@ def build_block_plan(jpegs: Sequence, pin_memory: bool = False) -> LanePlan:
             )
         key = (frame.height, frame.width, tuple((c.h, c.v) for c in frame.components))
         if key != key0:
-            raise JpegUnsupportedError("mixed geometry in one batch: callers bucket the images by geometry")
+            raise JpegUnsupportedError("mixed geometry in one batch: plan_launches buckets images by geometry")
         scan, tables_t = _image_tables(jpeg, table)
         if blk_tables is None:
             blk_tables = tables_t
@@ -390,15 +393,19 @@ def launch_key(plan: LanePlan, layout: PlaneLayout) -> Tuple:
 
 @dataclasses.dataclass(frozen=True)
 class PlanPart:
-    """One geometry bucket of a plan over several (``combine_plans``): its
-    block layout, its images [first, first + n) of the plan, and per scan
-    component the byte offset of its [n, plane_h, plane_w] planes in the
-    plan's flat output of that component."""
+    """One geometry bucket of a plan: its block layout, its images [first,
+    first + n) of the plan, and per scan component the byte offset of its
+    [n, plane_h, plane_w] planes in the plan's flat output of that
+    component. A plan of one geometry is one part at offset 0."""
 
     layout: PlaneLayout
     first: int
     n: int
     offsets: Tuple[int, ...]
+
+    @classmethod
+    def whole(cls, layout: PlaneLayout, n: int) -> "PlanPart":
+        return cls(layout, 0, n, (0,) * len(layout.comp))
 
     def end(self, sp: int) -> int:
         _h, _v, ph, pw = self.layout.comp[sp]
@@ -442,13 +449,13 @@ def combine_plans(plans: Sequence[LanePlan], layouts: Sequence[PlaneLayout],
     layouts), so that kernel A decodes them in one launch: the lanes in
     order, rows padded with 0xFF words to the widest plan's row (what
     ``build_block_plan`` gives a row of that width), each lane's image and
-    quantizer set renumbered over the whole and the quantizer sets merged
-    (``merge_for_launch``). With more than one plan it adds, per image, a
-    row of the geometry table ``geom`` (int32 [N, GEOM_WORDS]: MCU width, 3
-    zeros, then per scan component the plane's height, width and byte
-    offset / 64 in that component's flat output) and the buckets' places
-    (``parts``). With `pin_memory` every tensor is page-locked. Raises
-    ValueError on plans that cannot share a launch."""
+    quantizer set renumbered over the whole, the quantizer sets merged
+    (``merge_for_launch``) and a part per plan (``parts``). With more than
+    one plan it adds, per image, a row of the geometry table ``geom`` (int32
+    [N, GEOM_WORDS]: MCU width, 3 zeros, then per scan component the plane's
+    height, width and byte offset / 64 in that component's flat output),
+    which selects kernel A's mixed form. With `pin_memory` every tensor is
+    page-locked. Raises ValueError on plans that cannot share a launch."""
     key = launch_key(plans[0], layouts[0])
     if (len(plans) != len(layouts) or any(launch_key(p, lay) != key for p, lay in zip(plans, layouts))
             or any(p.bit0 is not None for p in plans)):
@@ -457,7 +464,6 @@ def combine_plans(plans: Sequence[LanePlan], layouts: Sequence[PlaneLayout],
     if merged is None:
         raise ValueError(f"combine_plans: over {MAX_QSETS} quantizer sets or {MAX_GEOM} images")
     qvals, remap = merged
-    mixed = len(plans) > 1
     p0 = plans[0]
     L = sum(p.n_lanes for p in plans)
     W = max(p.n_words for p in plans)
@@ -468,17 +474,13 @@ def combine_plans(plans: Sequence[LanePlan], layouts: Sequence[PlaneLayout],
 
     out = dict(bits=empty(L, W), seg_bits=empty(L), lane_m=empty(L), lane_qset=empty(L), lane_meta=empty(L, 3),
                tables=empty(*p0.tables.shape), huffval=empty(*p0.huffval.shape, dtype=torch.uint8),
-               qsets=empty(len(qvals), *p0.qsets.shape[1:]))
-    if mixed:
-        out["geom"] = empty(N, GEOM_WORDS)
-    bits, seg_bits, lane_m, lane_qset, lane_meta = (out[k].numpy() for k in
-                                                    ("bits", "seg_bits", "lane_m", "lane_qset", "lane_meta"))
+               qsets=empty(len(qvals), *p0.qsets.shape[1:]), geom=empty(N, GEOM_WORDS))
+    bits, seg_bits, lane_m, lane_qset, lane_meta, geom = (
+        out[k].numpy() for k in ("bits", "seg_bits", "lane_m", "lane_qset", "lane_meta", "geom"))
     out["tables"].copy_(p0.tables)
     out["huffval"].copy_(p0.huffval)
     out["qsets"].numpy()[...] = np.stack(qvals)
-    geom = out["geom"].numpy() if mixed else None
-    if mixed:
-        geom[...] = 0
+    geom[...] = 0
     off = [0] * len(layouts[0].comp)
     parts, img_qset = [], []
     l0 = i0 = 0
@@ -492,20 +494,95 @@ def combine_plans(plans: Sequence[LanePlan], layouts: Sequence[PlaneLayout],
         lane_meta[l0:l1] = p.lane_meta.numpy()
         lane_meta[l0:l1, 0] += i0
         img_qset += [int(m[q]) for q in p.img_qset]
-        if mixed:
-            parts.append(PlanPart(lay, i0, p.n_images, tuple(off)))
-            rows = geom[i0:i0 + p.n_images]
-            rows[:, 0] = lay.mcus_x
-            for sp, (_h, _v, ph, pw) in enumerate(lay.comp):
-                rows[:, 4 + 3 * sp] = ph
-                rows[:, 5 + 3 * sp] = pw
-                rows[:, 6 + 3 * sp] = (off[sp] + np.arange(p.n_images, dtype=np.int64) * ph * pw) // 64
-                off[sp] += p.n_images * ph * pw
+        parts.append(PlanPart(lay, i0, p.n_images, tuple(off)))
+        rows = geom[i0:i0 + p.n_images]
+        rows[:, 0] = lay.mcus_x
+        for sp, (_h, _v, ph, pw) in enumerate(lay.comp):
+            rows[:, 4 + 3 * sp] = ph
+            rows[:, 5 + 3 * sp] = pw
+            rows[:, 6 + 3 * sp] = (off[sp] + np.arange(p.n_images, dtype=np.int64) * ph * pw) // 64
+            off[sp] += p.n_images * ph * pw
         l0, i0 = l1, i0 + p.n_images
     if max(off) // 64 >= 2**31:
         raise ValueError("combine_plans: outputs over the geometry table's offsets")
+    if len(plans) == 1:
+        del out["geom"]   # one geometry: kernel A's one-geometry form, which reads no table
     return LanePlan(**out, blk_tables=p0.blk_tables, n_mcus=max(p.n_mcus for p in plans), n_images=N,
-                    img_qset=tuple(img_qset), parts=tuple(parts) if mixed else None)
+                    img_qset=tuple(img_qset), parts=tuple(parts))
+
+
+def bucket_key(jpeg) -> Tuple:
+    """The geometry bucket of a parsed baseline JPEG: frame size, sampling
+    and color space. Color interpretation is marker-driven (JFIF/Adobe
+    APP14): a YCbCr and an Adobe-RGB file of one geometry must not share a
+    transform."""
+    frame = jpeg.frame
+    return (frame.height, frame.width, tuple((c.h, c.v) for c in frame.components),
+            bitstream.color_space(jpeg))
+
+
+@dataclasses.dataclass
+class LaunchGroup:
+    """Geometry buckets that share one kernel-A launch: per bucket, its
+    images' positions in the planner's input and the images; and the plan
+    over them, a part per bucket in that order."""
+
+    at: List[List[int]]
+    jpegs: List[List]
+    plan: LanePlan
+
+    @property
+    def positions(self) -> List[int]:
+        """The planner-input position of each image of the plan, in order."""
+        return [k for at in self.at for k in at]
+
+
+def plan_launches(jpegs: Sequence, pin_memory: bool = False) -> Tuple[List[LaunchGroup], List[List[int]]]:
+    """The kernel-A launches of parsed baseline JPEGs: the images bucket by
+    ``bucket_key`` in order of first appearance, each bucket takes one
+    ``build_block_plan`` (one ``plan`` span), and a bucket joins the newest
+    launch group of its ``launch_key`` and color space while the group still
+    fits one launch (``merge_for_launch``), else it opens a new group.
+    Returns (launch groups, refused buckets): a bucket whose plan raises
+    JpegError or passes MAX_QSETS quantizer sets comes back as its
+    positions in `jpegs`. With `pin_memory` each group's plan is
+    page-locked: the one bucket of a uniform input packs its rows straight
+    into pinned memory; otherwise each group's plan is ``combine_plans`` of
+    its buckets', into pinned memory. Unpinned, a group of one bucket keeps
+    its bucket's plan."""
+    by_key: Dict[Tuple, List[int]] = {}
+    for k, j in enumerate(jpegs):
+        by_key.setdefault(bucket_key(j), []).append(k)
+    alone = len(by_key) == 1
+    planned, refused = [], []
+    for at in by_key.values():
+        js = [jpegs[k] for k in at]
+        try:
+            plan = build_block_plan(js, pin_memory=pin_memory and alone)
+        except JpegError:
+            refused.append(at)
+            continue
+        if int(plan.qsets.shape[0]) > MAX_QSETS:
+            refused.append(at)
+            continue
+        planned.append((at, js, plan, PlaneLayout.of(ImageGeom.of(js[0]))))
+    members: List[List[int]] = []
+    newest: Dict[Tuple, int] = {}
+    for i, (_at, js, plan, layout) in enumerate(planned):
+        key = (launch_key(plan, layout), bitstream.color_space(js[0]))
+        g = newest.get(key)
+        if g is not None and merge_for_launch([planned[j][2] for j in members[g] + [i]]) is not None:
+            members[g].append(i)
+            continue
+        newest[key] = len(members)
+        members.append([i])
+    groups = []
+    for idx in members:
+        ats, js, plans, layouts = zip(*(planned[i] for i in idx))
+        keep = len(plans) == 1 and (alone or not pin_memory)
+        groups.append(LaunchGroup(list(ats), list(js), plans[0] if keep else
+                                  combine_plans(plans, layouts, pin_memory=pin_memory)))
+    return groups, refused
 
 
 def plan_from_reference(ref_plan) -> LanePlan:
@@ -1097,12 +1174,20 @@ def _launch_wavefront(plan: LanePlan, layout: PlaneLayout, outs: Sequence[torch.
 
 def _decode_lanes(plan: LanePlan, geoms: Optional[Sequence[ImageGeom]], device, plain: bool, emit: str,
                   layout: Optional[PlaneLayout] = None):
+    """Kernel A or 2 (or their plain version) over the plan on `device`.
+    Pixels: per part (the plan's ``parts``, else one part of the first
+    image's layout), its planes: views of one zeroed flat output per scan
+    component. Coefficients: per scan component in frame order, the
+    zeroed batch ``layout.alloc`` gives."""
     device = torch.device(device)
     plan = plan.to(device)
-    if plan.parts is not None:
-        layout = plan.parts[0].layout
-        outs = [torch.zeros(plan.parts[-1].end(sp), dtype=torch.uint8, device=device)
-                for sp in range(len(layout.comp))]
+    if emit == "pixels":
+        parts = plan.parts or (PlanPart.whole(PlaneLayout.of(geoms[0]), len(geoms)),)
+        layout = parts[0].layout
+        flat = [torch.zeros(parts[-1].end(sp), dtype=torch.uint8, device=device) for sp in range(len(layout.comp))]
+        # Kernel A's one-geometry form takes [n, plane_h, plane_w] planes.
+        outs = flat if plan.geom is not None else [
+            f.view(parts[0].n, ph, pw) for f, (_h, _v, ph, pw) in zip(flat, layout.comp)]
     else:
         layout = layout or PlaneLayout.of(geoms[0])
         outs = layout.alloc(len(geoms), device, emit)
@@ -1113,8 +1198,8 @@ def _decode_lanes(plan: LanePlan, geoms: Optional[Sequence[ImageGeom]], device, 
         _launch_wavefront(plan, layout, outs, err, emit)
     else:
         raise ValueError(f"no decode path for device {device}")
-    if plan.parts is not None:
-        return [part.views(outs) for part in plan.parts], err
+    if emit == "pixels":
+        return [part.views(flat) for part in parts], err
     return [outs[sp] for sp in layout.out_order], err
 
 
@@ -1127,10 +1212,11 @@ def decode_lanes_to_planes(
     and the per-lane error bits int32[L]. On a CUDA device this launches
     kernel A; on the CPU it runs the plain version. ``plain=True`` runs
     the plain version on any device, to hold the kernel to it. For a plan
-    over several geometries (``combine_plans``; `geoms` unused) one launch
-    decodes every part, and planes holds each part's list of planes in
-    turn: views of one flat output per scan component."""
-    return _decode_lanes(plan, geoms, device, plain, "pixels")
+    with parts (``combine_plans``; `geoms` unused) one launch decodes
+    every part, and planes holds each part's list of planes in turn: views
+    of one flat output per scan component."""
+    parts, err = _decode_lanes(plan, geoms, device, plain, "pixels")
+    return (parts if plan.parts is not None else parts[0]), err
 
 
 def decode_lanes_to_coeffs(
@@ -1181,62 +1267,34 @@ def failures_from_err(errs: np.ndarray, lane_meta: np.ndarray) -> Dict[int, Exce
 
 
 def resolve_rgb_errors(err: torch.Tensor, plan: LanePlan) -> Dict[int, Exception]:
-    """Read back a decode's error vector and map it to per-image
-    failures."""
+    """Read back a decode's error vector and map it to per-image failures,
+    keyed by the image's index in the plan (over every part in turn)."""
     with spans.span(spans.CARD_WAIT):
         errs = err.cpu().numpy().reshape(-1)[: plan.n_lanes]
     return failures_from_err(errs, plan.lane_meta.cpu().numpy())
 
 
-def resolve_group_errors(err: torch.Tensor, plan: LanePlan) -> List[Dict[int, Exception]]:
-    """``resolve_rgb_errors`` per part of a plan over several geometries
-    (one dict for any other plan), each keyed by the image's index in its
-    part."""
-    failures = resolve_rgb_errors(err, plan)
-    if plan.parts is None:
-        return [failures]
-    return [{i - p.first: e for i, e in failures.items() if p.first <= i < p.first + p.n}
-            for p in plan.parts]
-
-
-def decode_plan_to_rgb(plan: LanePlan, jpegs: Sequence, config: DecodeConfig = DEFAULT_CONFIG,
-                       device="cuda", packed: bool = False):
-    """Kernel A and the color stage for a plan built elsewhere (the
-    stream's prep threads build it; the reference's ``_rgb_chain`` and its
-    call). Copies the plan to `device` without blocking (asynchronous from
-    pinned memory: keep `plan` alive until the stream has passed the
-    launches) and reads nothing back. Returns (rgb, layout, err): uint8
-    [N, H, W, 3] (or [N, H, W] gray) on `device` with layout "nhwc", or,
-    with `packed` where ``pipeline.packed_layout_applies``, planar uint16
-    [N, 3, H, W/2] with layout "packed16"; and the per-lane error bits
-    int32[L] for ``resolve_rgb_errors``."""
-    from . import pipeline
-
-    frame = jpegs[0].frame
-    color = bitstream.color_space(jpegs[0])
-    device = torch.device(device)
-    planes, err = decode_lanes_to_planes(plan.to(device, non_blocking=True),
-                                         [ImageGeom.of(j) for j in jpegs], device)
-    rgb = pipeline.transform_planes_batch(frame, planes, config, color=color, packed=packed)
-    return rgb, pipeline.layout_of(rgb), err
-
-
 def decode_group_to_rgb(plan: LanePlan, bucket_jpegs: Sequence[Sequence], config: DecodeConfig = DEFAULT_CONFIG,
                         device="cuda", packed: bool = False):
-    """``decode_plan_to_rgb`` for a launch group: a plan over one or several
-    geometry buckets (``combine_plans``), `bucket_jpegs` the images of each
-    part in order. Kernel A runs once over every part, then the color
-    stage once per part on its views of the flat planes. Returns (rgb per
-    part, layout, err): the layout is the last part's (one where `packed`
-    applies to every part), err the per-lane error bits of the whole plan
-    for ``resolve_group_errors``."""
+    """Kernel A and the color stage for a restart or norst plan built
+    elsewhere (the stream's prep threads, the batch ladder; the reference's
+    ``_rgb_chain`` and its call): `bucket_jpegs` holds the images of each
+    part of the plan in order, one list for a plan of one geometry. Kernel
+    A runs once over every part, then the color stage once per part on its
+    views of the flat planes. Copies the plan to `device` without blocking
+    (asynchronous from pinned memory: keep `plan` alive until the stream
+    has passed the launches) and reads nothing back. Returns (rgb per
+    part, layout, err): each rgb uint8 [n, H, W, 3] (or [n, H, W] gray) on
+    `device` with layout "nhwc", or, with `packed` where
+    ``pipeline.packed_layout_applies``, planar uint16 [n, 3, H, W/2] with
+    layout "packed16" (the last part's layout: one where `packed` applies
+    to every part); err the per-lane error bits int32[L] of the whole plan
+    for ``resolve_rgb_errors``."""
     from . import pipeline
 
-    if plan.parts is None:
-        rgb, layout, err = decode_plan_to_rgb(plan, bucket_jpegs[0], config, device, packed)
-        return [rgb], layout, err
     device = torch.device(device)
-    parts, err = decode_lanes_to_planes(plan.to(device, non_blocking=True), None, device)
+    parts, err = _decode_lanes(plan.to(device, non_blocking=True), [ImageGeom.of(j) for j in bucket_jpegs[0]],
+                               device, False, "pixels")
     rgbs = [pipeline.transform_planes_batch(js[0].frame, planes, config, color=bitstream.color_space(js[0]),
                                             packed=packed)
             for planes, js in zip(parts, bucket_jpegs)]
@@ -1247,17 +1305,17 @@ def decode_batch_to_rgb(jpegs: Sequence, config: DecodeConfig = DEFAULT_CONFIG,
                         defer_errors: bool = False, device="cuda"):
     """Fused decode of a uniform batch of parsed baseline JPEGs
     (``tpujpeg_torch.bitstream.parse``) on `device`: kernel A to component
-    planes, then upsample + color. Returns ([N, H, W, 3] or [N, H, W]
-    uint8 on `device`, {image index: exception}). With `defer_errors`
-    the second element is instead the (err, plan) pair for
-    ``resolve_rgb_errors``: nothing is read back, so a caller can launch
-    several batches before it waits on any."""
+    planes, then upsample + color (``decode_group_to_rgb``). Returns ([N,
+    H, W, 3] or [N, H, W] uint8 on `device`, {image index: exception}).
+    With `defer_errors` the second element is instead the (err, plan) pair
+    for ``resolve_rgb_errors``: nothing is read back, so a caller can
+    launch several batches before it waits on any."""
     plan = build_block_plan(jpegs)
     if int(plan.qsets.shape[0]) > MAX_QSETS:
         raise JpegUnsupportedError(
             f"fused pixels mode takes at most {MAX_QSETS} distinct quantizer sets per batch"
         )
-    rgb, _layout, err = decode_plan_to_rgb(plan, jpegs, config, device)
+    (rgb,), _layout, err = decode_group_to_rgb(plan, [jpegs], config, device)
     if defer_errors:
         return rgb, (err, plan)
     return rgb, resolve_rgb_errors(err, plan)
@@ -1317,7 +1375,7 @@ def decode_norst_to_rgb(jpeg, config: DecodeConfig = DEFAULT_CONFIG, every: int 
                         packed: bool = False, device="cuda"):
     """Fused decode of one baseline scan the restart planner refuses on
     `device`: ``build_norst_plan``, then kernel A and the color stage
-    (``decode_plan_to_rgb``). On a CUDA device `every` 0 takes the card's
+    (``decode_group_to_rgb``). On a CUDA device `every` 0 takes the card's
     split (``card_norst_plan``); elsewhere, or with `every` given, the
     reference's. Returns uint8 [H, W, 3] (or [H, W] gray) on `device`, or
     with `packed` where ``pipeline.packed_layout_applies`` the planar
@@ -1328,7 +1386,7 @@ def decode_norst_to_rgb(jpeg, config: DecodeConfig = DEFAULT_CONFIG, every: int 
         plan = card_norst_plan(jpeg, device)
     else:
         plan = build_norst_plan(jpeg, every)
-    rgb, _layout, err = decode_plan_to_rgb(plan, [jpeg], config, device, packed)
+    (rgb,), _layout, err = decode_group_to_rgb(plan, [[jpeg]], config, device, packed)
     failures = resolve_rgb_errors(err, plan)
     if failures:
         raise failures[0]
@@ -1457,7 +1515,7 @@ def decode_batch_to_rgb_sharded(jpegs: Sequence, config: DecodeConfig = DEFAULT_
     """Data-parallel fused decode of a uniform batch over `mesh` (default:
     every visible CUDA device; it raises without a card): the list splits
     into one contiguous chunk per device, and each device runs kernel A
-    and the color stage on its chunk (``decode_plan_to_rgb``). Refuses,
+    and the color stage on its chunk (``decode_group_to_rgb``). Refuses,
     as the reference does (JpegUnsupportedError), a batch whose length
     the mesh does not divide, more quantizer sets than kernel A takes,
     and chunks whose table sets, quantizer sets, per-image quantizer
@@ -1480,12 +1538,12 @@ def decode_batch_to_rgb_sharded(jpegs: Sequence, config: DecodeConfig = DEFAULT_
         if (p.blk_tables != p0.blk_tables or not torch.equal(p.qsets, p0.qsets)
                 or p.img_qset != p0.img_qset or p.n_mcus != p0.n_mcus):
             raise JpegUnsupportedError("sharded decode needs identical chunk structure")
-    launched = [decode_plan_to_rgb(p, c, config, dev) for p, c, dev in zip(plans, chunks, mesh)]
+    launched = [decode_group_to_rgb(p, [c], config, dev) for p, c, dev in zip(plans, chunks, mesh)]
     failures: Dict[int, Exception] = {}
-    for di, ((_rgb, _layout, err), p) in enumerate(zip(launched, plans)):
+    for di, ((_rgbs, _layout, err), p) in enumerate(zip(launched, plans)):
         for img, exc in resolve_rgb_errors(err, p).items():
             failures.setdefault(di * per + img, exc)
-    return [rgb for rgb, _layout, _err in launched], failures
+    return [rgbs[0] for rgbs, _layout, _err in launched], failures
 
 
 def decode_multiscan_to_device(jpeg, config: DecodeConfig = DEFAULT_CONFIG,

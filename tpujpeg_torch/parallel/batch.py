@@ -4,7 +4,7 @@ the batch.
 
 Port of ``tpujpeg/parallel/batch.py``. ``decode_batch_on_device`` keeps
 the reference's two phases: it launches every progressive group and every
-geometry bucket with deferred errors (nothing read back), then resolves
+launch group with deferred errors (nothing read back), then resolves
 them in order, popping each as it goes so that its RGB can be released.
 
 - Progressive images group by ``scan_group_key`` and color space and run
@@ -12,16 +12,17 @@ them in order, popping each as it goes so that its RGB can be released.
   (``decode_all_scans_to_rgb_batch``). A group that raises goes image by
   image: the scan kernels first, then host entropy and the device
   transform where an image is outside their scope.
-- Baseline images bucket by geometry and color space (``_bucket_key``)
-  and run kernel A and the color stage per bucket
-  (``decode_batch_to_rgb``). A bucket that path rejects splits by
-  ``wavefront.plan_key``: members that share Huffman tables launch again
-  together, and members the planner refuses even alone (multi-scan,
-  marker-free, oversize segments) go image by image. A bucket with
-  nothing to split (more quantizer sets than kernel A takes) runs kernel
-  2 (``decode_batch_to_device(strict=False)``) and ``transform_batch``
-  in sub-buckets by quantizer set. Image by image: a single scan takes
-  the norst plan through kernel A and the color stage
+- Baseline images take ``wavefront.plan_launches``, as the stream's
+  prep threads do: geometry buckets (``bucket_key``) in launch groups,
+  kernel A once per group and the color stage per bucket
+  (``wavefront.decode_group_to_rgb``). A bucket the planner refuses
+  splits by ``wavefront.plan_key``: members that share Huffman tables go
+  back through the planner together, and members the planner refuses
+  even alone (multi-scan, marker-free, oversize segments) go image by
+  image. A bucket with nothing to split (more quantizer sets than kernel
+  A takes) runs kernel 2 (``decode_batch_to_device(strict=False)``) and
+  ``transform_batch`` in sub-buckets by quantizer set. Image by image: a
+  single scan takes the norst plan through kernel A and the color stage
   (``wavefront.decode_norst_to_rgb``, engine "wavefront-skeleton"), as
   the reference's does; then kernel 2 per scan
   (``wavefront.decode_all_scans``: multi-scan files), then host entropy
@@ -69,16 +70,7 @@ class BatchResult:
     stats: List[Optional[DecodeStats]]
 
 
-def _bucket_key(jpeg) -> Tuple:
-    frame = jpeg.frame
-    return (
-        frame.height,
-        frame.width,
-        tuple((c.h, c.v) for c in frame.components),
-        # Color interpretation is marker-driven (JFIF/Adobe APP14): a YCbCr
-        # and an Adobe-RGB file of one geometry must not share a transform.
-        bitstream.color_space(jpeg),
-    )
+_bucket_key = wf.bucket_key   # its old name here, which jpegbench's plan_ms_per_mp.shard reads
 
 
 def _as_error(e: Exception) -> JpegError:
@@ -236,8 +228,8 @@ def decode_batch_on_device(datas: Sequence[bytes], config: DecodeConfig = DEFAUL
         except JpegError as e:
             errors[i] = e
 
-    # Phase 1: launch every progressive group and every bucket, reading
-    # nothing back.
+    # Phase 1: launch every progressive group and every launch group,
+    # reading nothing back.
     groups: Dict[Tuple, List[int]] = {}
     for i in progressive:
         try:
@@ -261,34 +253,31 @@ def decode_batch_on_device(datas: Sequence[bytes], config: DecodeConfig = DEFAUL
     solo: List[int] = []                 # per image: coeff_one
 
     def launch(members: List[int]) -> None:
-        """Kernel A and the color stage for one bucket. A bucket the shared
-        plan rejects splits: members that share Huffman tables and fit the
-        planner alone launch again together, the rest go image by image; a
-        bucket with nothing to split takes kernel 2."""
-        try:
-            rgb, deferred = wf.decode_batch_to_rgb([jpegs[i] for i in members], config,
-                                                   defer_errors=True, device=device)
-        except JpegError:
+        """Kernel A and the color stage for baseline images, launch group
+        by launch group. A bucket the planner refuses splits: members that
+        share Huffman tables and fit the planner alone go back through it
+        together, the rest go image by image; a bucket with nothing to
+        split takes kernel 2."""
+        groups, refused = wf.plan_launches([jpegs[i] for i in members])
+        for g in groups:
+            rgbs, _layout, err = wf.decode_group_to_rgb(g.plan, g.jpegs, config, device)
+            pending.append(([members[k] for k in g.positions], rgbs, err, g.plan))
+        for at in refused:
+            bucket = [members[k] for k in at]
             by_tables: Dict[Tuple, List[int]] = {}
-            for i in members:
+            for i in bucket:
                 try:
                     by_tables.setdefault(wf.plan_key(jpegs[i]), []).append(i)
                 except JpegError:
                     solo.append(i)
             parts = list(by_tables.values())
-            if parts == [members]:
-                coeff_buckets.append(members)
+            if parts == [bucket]:
+                coeff_buckets.append(bucket)
             else:
                 for part in parts:
                     launch(part)
-            return
-        pending.append((members, rgb, deferred))
 
-    buckets: Dict[Tuple, List[int]] = {}
-    for i in baseline:
-        buckets.setdefault(_bucket_key(jpegs[i]), []).append(i)
-    for members in buckets.values():
-        launch(members)
+    launch(baseline)
 
     # Phase 2: resolve in launch order.
     while prog_pending:
@@ -300,13 +289,14 @@ def decode_batch_on_device(datas: Sequence[bytes], config: DecodeConfig = DEFAUL
             else:
                 record(i, rgb[li], "wavefront-prog")
     while pending:
-        members, rgb, (err, plan) = pending.pop(0)
+        members, rgbs, err, plan = pending.pop(0)
         failures = wf.resolve_rgb_errors(err, plan)
-        for li, i in enumerate(members):
+        slots = ((rgb, k) for rgb in rgbs for k in range(rgb.shape[0]))
+        for li, (i, (rgb, k)) in enumerate(zip(members, slots)):
             if li in failures:
                 errors[i] = failures[li]
             else:
-                record(i, rgb[li], "wavefront-fused")
+                record(i, rgb[k], "wavefront-fused")
 
     for members in coeff_buckets:
         sub = [jpegs[i] for i in members]

@@ -12,7 +12,7 @@ peer copies between the shards' devices (``halo.py``), so no mesh needs
 
 The reference's ``batch_sharding`` has no counterpart: a mesh is already
 its placement (shard i's slice lives on ``mesh[i]``). Mesh axis names
-have none either, so ``DecodeConfig.mesh_axis`` stays unread.
+have none either, so the port's ``DecodeConfig`` has no mesh axis.
 """
 
 from __future__ import annotations

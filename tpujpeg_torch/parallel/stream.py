@@ -3,22 +3,14 @@ device's decode of earlier chunks.
 
 Port of ``tpujpeg/parallel/stream.py``. The stages per chunk of images:
 
-  prep   (worker threads)  parse, group the images into geometry buckets
-                           (``batch._bucket_key``, in order of first
+  prep   (worker threads)  parse, then ``wavefront.plan_launches``: the
+                           images in geometry buckets (in order of first
                            appearance, as ``decode_batch_on_device``
-                           buckets them) and ``build_block_plan`` one plan
-                           per bucket (the native row packer releases the
-                           interpreter lock; parsing does not); then the
-                           buckets into launch groups: those whose
-                           ``wavefront.launch_key`` and color space agree
-                           share one while it fits one launch
-                           (``wavefront.merge_for_launch``: quantizer
-                           sets within MAX_QSETS, images within
-                           MAX_GEOM). On a CUDA device the one bucket of
-                           a uniform chunk packs its rows straight into
-                           pinned host memory; a chunk of several buckets
-                           plans them pageable and copies each launch
-                           group's into one pinned plan (``combine_plans``)
+                           buckets them), one ``build_block_plan`` per
+                           bucket (the native row packer releases the
+                           interpreter lock; parsing does not), and the
+                           buckets in launch groups, each with one pinned
+                           plan on a CUDA device
   submit (main thread)     per launch group, copy its plan to the card
                            without blocking, launch kernel A once (its
                            mixed form over several buckets) and the color
@@ -27,8 +19,8 @@ Port of ``tpujpeg/parallel/stream.py``. The stages per chunk of images:
                            keeps every pinned plan alive until that event
                            has passed
   sync   (main thread)     wait for the event and read back each group's
-                           per-lane error vector, mapped to its buckets'
-                           images (``resolve_group_errors``)
+                           per-lane error vector, mapped to its images
+                           (``resolve_rgb_errors``)
 
 At most `depth` chunks are in flight, and up to `prep_workers + depth`
 chunks are queued for prep. Everything runs on the one current stream, so
@@ -61,30 +53,13 @@ import torch
 
 from .. import bitstream, spans
 from ..config import DEFAULT_CONFIG, DecodeConfig
-from ..errors import JpegError, JpegUnsupportedError
+from ..errors import JpegError
 from ..kernels import pipeline
 from ..kernels import wavefront as wf
 from ..stats import DecodeStats
-from .batch import BatchResult, _bucket_key, decode_batch, decode_batch_on_device
+from .batch import BatchResult, decode_batch, decode_batch_on_device
 
 LAYOUTS = ("nhwc", "packed16")
-
-
-@dataclasses.dataclass
-class _Bucket:
-    """The images of one geometry bucket of a chunk."""
-
-    at: List[int]                    # positions in the chunk's members
-    jpegs: List
-
-
-@dataclasses.dataclass
-class _Group:
-    """Geometry buckets that share one kernel-A launch, and their plan: the
-    one bucket's, or ``combine_plans`` over them (a part per bucket)."""
-
-    buckets: List[_Bucket]
-    plan: wf.LanePlan
 
 
 @dataclasses.dataclass
@@ -92,7 +67,7 @@ class _Unit:
     """One prepped chunk: fused-path launch groups, or a fallback."""
 
     members: List[int]               # original indices of cleanly parsed images
-    groups: Optional[List[_Group]]   # None -> fallback
+    groups: Optional[List[wf.LaunchGroup]]  # None -> fallback; positions index members
     failures: Dict[int, Exception]   # original index -> parse error
     datas: Optional[List[bytes]] = None  # kept for the fallback only
 
@@ -135,49 +110,14 @@ def _prep_chunk(datas: Sequence[bytes], members: List[int], pin: bool) -> _Unit:
             failures[i] = JpegError(f"internal parse failure: {e!r}")
     if not ok:
         return _Unit(ok, None, failures)
-    try:
-        if any(j.frame.progressive for j in jpegs):
-            raise JpegUnsupportedError("progressive: the fallback decodes it")
-        by_geometry: Dict[tuple, List[int]] = {}
-        for k, j in enumerate(jpegs):
-            by_geometry.setdefault(_bucket_key(j), []).append(k)
-        buckets = [_Bucket(at, [jpegs[k] for k in at]) for at in by_geometry.values()]
-        alone = len(buckets) == 1
-        plans = []
-        for b in buckets:
-            plan = wf.build_block_plan(b.jpegs, pin_memory=pin and alone)
-            if int(plan.qsets.shape[0]) > wf.MAX_QSETS:
-                raise JpegUnsupportedError("too many quantizer sets for the fused path")
-            plans.append(plan)
-    except JpegError:
-        # Outside the fused path in some bucket, or a plan-time data error
-        # that would poison a shared plan: the fallback isolates images.
-        return _Unit(ok, None, failures, [datas[i] for i in ok])
-    if alone:
-        return _Unit(ok, [_Group(buckets, plans[0])], failures)
-    return _Unit(ok, _launch_groups(buckets, plans, pin), failures)
-
-
-def _launch_groups(buckets: List[_Bucket], plans: List[wf.LanePlan], pin: bool) -> List[_Group]:
-    """The buckets in launch groups, in order of first appearance: a bucket
-    joins the newest group of its launch key and color space while the
-    group still fits one launch (``wavefront.merge_for_launch``), else it
-    opens a new group. Each group's plan is ``combine_plans`` of its
-    buckets', page-locked with `pin`."""
-    layouts = [wf.PlaneLayout.of(wf.ImageGeom.of(b.jpegs[0])) for b in buckets]
-    members: List[List[int]] = []
-    newest: Dict[tuple, int] = {}
-    for i, (b, plan, layout) in enumerate(zip(buckets, plans, layouts)):
-        key = (wf.launch_key(plan, layout), bitstream.color_space(b.jpegs[0]))
-        g = newest.get(key)
-        if g is not None and wf.merge_for_launch([plans[j] for j in members[g] + [i]]) is not None:
-            members[g].append(i)
-            continue
-        newest[key] = len(members)
-        members.append([i])
-    return [_Group([buckets[i] for i in idx],
-                   wf.combine_plans([plans[i] for i in idx], [layouts[i] for i in idx], pin_memory=pin))
-            for idx in members]
+    if not any(j.frame.progressive for j in jpegs):
+        groups, refused = wf.plan_launches(jpegs, pin_memory=pin)
+        if not refused:
+            return _Unit(ok, groups, failures)
+    # Progressive, outside the fused path in some bucket, or a plan-time
+    # data error that would poison a shared plan: the fallback isolates
+    # images.
+    return _Unit(ok, None, failures, [datas[i] for i in ok])
 
 
 @dataclasses.dataclass
@@ -196,13 +136,12 @@ def _submit(unit: _Unit, config: DecodeConfig, device: torch.device, packed: boo
     if unit.groups is None:
         return _InFlight(unit)  # the fallback decodes at sync time
     packed = packed and all(
-        pipeline.packed_layout_applies(b.jpegs[0].frame, config, bitstream.color_space(b.jpegs[0]))
-        for g in unit.groups for b in g.buckets)
+        pipeline.packed_layout_applies(js[0].frame, config, bitstream.color_space(js[0]))
+        for g in unit.groups for js in g.jpegs)
     outs, layout = [], "nhwc"
     for g in unit.groups:
-        rgbs, layout, err = wf.decode_group_to_rgb(g.plan, [b.jpegs for b in g.buckets], config, device,
-                                                   packed=packed)
-        spans.count(spans.A_BUCKETS, len(g.buckets))
+        rgbs, layout, err = wf.decode_group_to_rgb(g.plan, g.jpegs, config, device, packed=packed)
+        spans.count(spans.A_BUCKETS, len(g.jpegs))
         outs.append((rgbs, err))
     done = None
     if device.type == "cuda":
@@ -239,12 +178,13 @@ def _sync(flight: _InFlight, config: DecodeConfig, device: torch.device) -> Stre
         with spans.span(spans.CARD_WAIT):
             flight.done.synchronize()
     for g, (rgbs, err) in zip(unit.groups, flight.outs):
-        for b, rgb, local in zip(g.buckets, rgbs, wf.resolve_group_errors(err, g.plan)):
-            for li, k in enumerate(b.at):
-                if li in local:
-                    failures[unit.members[k]] = local[li]
-                else:
-                    images[k] = rgb[li]
+        failed = wf.resolve_rgb_errors(err, g.plan)
+        slots = ((rgb, li) for rgb in rgbs for li in range(rgb.shape[0]))
+        for i, (k, (rgb, li)) in enumerate(zip(g.positions, slots)):
+            if i in failed:
+                failures[unit.members[k]] = failed[i]
+            else:
+                images[k] = rgb[li]
     images += [None] * len(unit.failures)
     return StreamChunk(members, images, failures, "wavefront-fused", flight.layout)
 

@@ -27,11 +27,11 @@ planes of 32 copies of their 384x512 fixture (/422, /444) and of the
 luma (/random). Kernel A also runs on one stream chunk of the
 imagenet_shard sizes (32 images, 13 x 512^2, 10 x 768x512, 6 x 1024^2,
 3 x 2048^2, made with tests/corpus.py): one launch per geometry bucket
-(/shard_buckets), and where the tree has it, one launch of its mixed form
-over the whole chunk (/shard_mixed, checked equal to the bucket launches,
-with its CTAs per SM and shared memory). The fixtures are read from this
-tool's checkout, so every tree gets the same inputs. It uses only entry points that every
-checkout since the sharded giant path (fixtures/tile.py) has.
+(/shard_buckets) and one launch of its mixed form over the whole chunk
+(/shard_mixed, checked equal to the bucket launches, with its CTAs per SM
+and shared memory). The fixtures are read from this tool's checkout, so
+every tree gets the same inputs. It uses only entry points that every
+checkout since kernel A's mixed form (``wavefront.combine_plans``) has.
 
 Every kernel is timed two ways in the same process. ``ms``: the card
 sleeps (torch.cuda._sleep) before the start event until every launch of
@@ -248,9 +248,9 @@ def run_one(tree: str, reps: int) -> dict:
             occupancy[kname] = {"ctas_per_sm": ctas.value, "smem_bytes": smem.value}
 
     # Kernel A on a stream chunk of the imagenet_shard sizes: one launch
-    # per geometry bucket (/shard_buckets, the four summed), and where the
-    # tree has the mixed form, one launch over the four (/shard_mixed),
-    # held equal to the bucket launches here.
+    # per geometry bucket (/shard_buckets, the four summed) and one launch
+    # of the mixed form over the four (/shard_mixed), held equal to the
+    # bucket launches here.
     buckets = [[tpujpeg_torch.bitstream.parse(d) for d in datas] for datas in shard_chunk()]
     cplans = [wf.build_block_plan(js) for js in buckets]
     bplans = [p.to(dev) for p in cplans]
@@ -264,29 +264,27 @@ def run_one(tree: str, reps: int) -> dict:
 
     timed("wavefront_pixels/shard_buckets", bucket_launches)
     digests["wavefront_pixels/shard_buckets"] = _digest([t for planes, e in bouts for t in planes + [e]])
-    if hasattr(wf, "combine_plans"):
-        mixed = wf.combine_plans(cplans, blays).to(dev)
-        mouts = [torch.zeros(mixed.parts[-1].end(sp), dtype=torch.uint8, device=dev)
-                 for sp in range(len(blays[0].comp))]
-        merr = torch.zeros(mixed.n_lanes, dtype=torch.int32, device=dev)
-        timed("wavefront_pixels_mixed/shard_mixed", lambda: wf._launch_wavefront(mixed, blays[0], mouts, merr))
-        torch.cuda.synchronize()
-        same = torch.equal(merr, torch.cat([e for _planes, e in bouts])) and all(
-            torch.equal(a, b) for part, (planes, _e) in zip(mixed.parts, bouts)
-            for a, b in zip(part.views(mouts), [planes[sp] for sp in part.layout.out_order]))
-        if not same:
-            raise RuntimeError("the mixed launch differs from the bucket launches")
-        mocc = getattr(build.get_lib(), "tj_wavefront_occupancy_mixed", None)
-        if mocc is not None:
-            import ctypes
+    mixed = wf.combine_plans(cplans, blays).to(dev)
+    mouts = [torch.zeros(mixed.parts[-1].end(sp), dtype=torch.uint8, device=dev)
+             for sp in range(len(blays[0].comp))]
+    merr = torch.zeros(mixed.n_lanes, dtype=torch.int32, device=dev)
+    timed("wavefront_pixels_mixed/shard_mixed", lambda: wf._launch_wavefront(mixed, blays[0], mouts, merr))
+    torch.cuda.synchronize()
+    same = torch.equal(merr, torch.cat([e for _planes, e in bouts])) and all(
+        torch.equal(a, b) for part, (planes, _e) in zip(mixed.parts, bouts)
+        for a, b in zip(part.views(mouts), [planes[sp] for sp in part.layout.out_order]))
+    if not same:
+        raise RuntimeError("the mixed launch differs from the bucket launches")
+    import ctypes
 
-            ctas, smem = ctypes.c_int(0), ctypes.c_int(0)
-            build.raise_on_error(mocc(mixed.blocks_per_mcu, int(mixed.qsets.shape[0]), len(blays[0].comp),
-                                      max(wf.table_sets(mixed.blk_tables)) + 1, mixed.n_images,
-                                      ctypes.addressof(ctas), ctypes.addressof(smem)), "occupancy")
-            occupancy["wavefront_pixels_mixed"] = {"ctas_per_sm": ctas.value, "smem_bytes": smem.value,
-                                                   "images": mixed.n_images, "lanes": mixed.n_lanes}
-        del mixed, mouts, merr
+    ctas, smem = ctypes.c_int(0), ctypes.c_int(0)
+    build.raise_on_error(build.get_lib().tj_wavefront_occupancy_mixed(
+        mixed.blocks_per_mcu, int(mixed.qsets.shape[0]), len(blays[0].comp),
+        max(wf.table_sets(mixed.blk_tables)) + 1, mixed.n_images,
+        ctypes.addressof(ctas), ctypes.addressof(smem)), "occupancy")
+    occupancy["wavefront_pixels_mixed"] = {"ctas_per_sm": ctas.value, "smem_bytes": smem.value,
+                                           "images": mixed.n_images, "lanes": mixed.n_lanes}
+    del mixed, mouts, merr
     del bplans, bouts
 
     bound_ms = {}
