@@ -53,7 +53,12 @@ of tpujpeg/. Phases, one JSON line each:
    restart markers through decode_all_scans_to_rgb_batch, one warm-up
    and 3 timed runs, counted apart: per call kernel 7 once, 8 and 9
    four times each, kernel 6 three times and B once, and neither A nor
-   2. The RGB equals the main path's byte for byte and PIL's hash.
+   2. The RGB equals the main path's byte for byte and PIL's hash. Then
+   the three prog_tsets fixtures (one odd size, each with its own
+   Huffman tables) as one group: each kernel scan one launch, scan by
+   scan equal to the plain versions, each launch's prog_tsets count the
+   number of distinct tables the files carry for that scan, and every
+   image hashing to PIL's.
 7. norst: the marker-free 2048x2048 fixture (2048 lanes of 8 MCUs at
    the default every) through decode_norst_to_rgb, nhwc and packed=True,
    one warm-up and 3 timed runs each, counted apart: A and B, A and the
@@ -464,6 +469,7 @@ def main() -> int:
         print(f"chip_smoke: run it from a checkout of the repo: {e}", file=sys.stderr)
         return 1
     from tpujpeg_torch.kernels import build, idct, pipeline, sample_color as sc, wavefront as wf
+    from tpujpeg_torch import spans
     from tpujpeg_torch.kernels import wavefront_prog as wp
     from tpujpeg_torch.tools.kernel_ab import device_ms
 
@@ -702,7 +708,7 @@ def main() -> int:
     # A corrupted batch of 3: member 1's first AC-first payload filled
     # with 0xFF bytes (no valid code), member 2's AC-refine payloads with
     # seeded byte flips; restart offsets stay, so the lanes do too.
-    name = progressive[-1]
+    name = "prog_gray"
     jpegs = [parse(datas[name]) for _ in range(3)]
     rng = np.random.default_rng(5)
     for k, scan in enumerate(jpegs[1].scans):
@@ -859,6 +865,26 @@ def main() -> int:
          dc_refine_ors=sum(len(st.comp_indices) for st in psteps if isinstance(st, wp.DcRefine)))
     main_image = fused_rgb[0].clone()
     del prgb, fused_rgb
+
+    # The table-set group: the distinct tables of each kernel scan, from
+    # the files' own bytes (scan_group_key), against the plans' sets.
+    tsets = [n for n in progressive if n.startswith("prog_tsets_")]
+    tjpegs = [parse(datas[n]) for n in tsets]
+    want_sets = [len({wp.scan_group_key(j)[3 + k][-1] for j in tjpegs})
+                 for k, s in enumerate(tjpegs[0].scans) if wp.scan_kind(s) != "dc_refine"]
+    spans.drain()
+    with spans.adopt(0):
+        _acs, _dcs, bad_lanes = prog_vs_plain(tjpegs)
+        trgb, _layout, failures = tpujpeg_torch.decode_all_scans_to_rgb_batch(tjpegs, config, device=dev)
+    counts = [r.n for r in spans.drain() if r.name == spans.PROG_TSETS]
+    check(len(tsets) == 3 and max(want_sets) == 3, f"table-set fixtures {tsets}: sets {want_sets}")
+    check(bad_lanes == 0 and not failures, f"table-set group: {bad_lanes} lanes with errors, {failures}")
+    check(counts == want_sets * 2, f"prog_tsets counts {counts}, want {want_sets} for each of two runs")
+    for i, n in enumerate(tsets):
+        check(sha(trgb[i]) == manifest["fixtures"][n]["pil_sha256"], f"table-set group: {n} != PIL")
+    emit("progressive_table_sets", fixtures=tsets, table_sets=want_sets, prog_tsets=counts,
+         max_abs_err={k: prog_err[k] for k in PROG_KERNEL.values()})
+    del _acs, _dcs, trgb
 
     # 7. norst: the marker-free fixture through the norst entries, each
     # path counted apart; every run parses anew outside the clock, so the

@@ -611,10 +611,11 @@ def _step_kernel_and_plain(step, acs, dcs):
 
 
 def _plan_luts(tables, huffval):
-    """int16 [n_sp, 512] lookahead tables of a plan's tables and symbols."""
-    return torch.stack([
+    """int16 [S, n_sp, 512] lookahead tables of a plan's table sets and
+    symbols."""
+    return torch.stack([torch.stack([
         wf.lookahead_table(wf.CanonTable(tuple(t[:17]), tuple(t[17:]), tuple(h))).to(torch.int16)
-        for t, h in zip(tables.tolist(), huffval.tolist())])
+        for t, h in zip(ts, hs)]) for ts, hs in zip(tables.tolist(), huffval.tolist())])
 
 
 def _random_rows(plan, g):
@@ -701,6 +702,60 @@ def test_prog_kernels_7_8_on_lanes_of_unequal_length(cuda, name, kind):
         assert bool(err.any()) and not bool(err.all())
 
 
+TSETS = sorted(n for n in PROGRESSIVE if n.startswith("prog_tsets_"))
+
+
+def test_prog_kernels_match_plain_on_a_three_set_plan(cuda):
+    """The three prog_tsets fixtures (one odd size, each with its own
+    Huffman tables) in one group: each kernel scan is one launch over up to
+    three table sets, with padding lanes between the images. Every scan
+    through kernels 7-9 equals the plain versions, each launch records its
+    table sets (``prog_tsets``), and every image equals PIL. Then each
+    kernel scan again on a poisoned state of four images, the padding lanes
+    moved to the fourth, which no real lane reaches: kernel and plain
+    versions agree, the padding lanes raise nothing, and the fourth
+    image's state keeps its poison."""
+    import hashlib
+
+    from tpujpeg_torch import spans
+
+    jpegs = [tpujpeg_torch.bitstream.parse(_read(n)) for n in TSETS]
+    steps = wp.plan_scans(jpegs)
+    plans = [st for st in steps if isinstance(st, wp.ScanPlan)]
+    assert len(TSETS) == 3 and max(p.n_sets for p in plans) == 3
+    assert all(bool((p.lane_m == 0).any()) for p in plans if p.n_sets > 1)
+    spans.drain()
+    with spans.adopt(0):
+        acs, dcs, bad = _prog_kernels_and_plain(jpegs, cuda, steps)
+    counts = [r.n for r in spans.drain() if r.name == spans.PROG_TSETS]
+    assert bad == 0 and counts == [p.n_sets for p in plans]
+    frame = jpegs[0].frame
+    qtabs = [torch.from_numpy(np.stack([j.qtables[c.tq] for j in jpegs]).astype(np.int32)).to(cuda)
+             for c in frame.components]
+    rgb = pipeline.transform_batch(frame, acs, qtabs, tpujpeg_torch.DEFAULT_CONFIG,
+                                   color=tpujpeg_torch.bitstream.color_space(jpegs[0]), dcs=dcs)
+    for i, name in enumerate(TSETS):
+        assert hashlib.sha256(rgb[i].cpu().numpy().tobytes()).hexdigest() == MANIFEST["fixtures"][name]["pil_sha256"]
+
+    g = torch.Generator().manual_seed(31)
+    for plan in plans:
+        pad = plan.lane_m == 0
+        meta = plan.lane_meta.clone()
+        meta[pad, 0] = 3
+        plan = dataclasses.replace(plan, lane_meta=meta, n_images=4,
+                                   image_set=torch.cat([plan.image_set, plan.image_set[:1]]))
+        acs, dcs = wp.new_state(frame, 4, cuda)
+        for t in acs + dcs:
+            t.copy_(torch.randint(-(2**31), 2**31 - 1, t.shape, generator=g, dtype=torch.int32))
+        poison = [t[3].clone() for t in acs + dcs]
+        err = _step_kernel_and_plain(plan, acs, dcs)
+        assert not bool(err[pad.to(cuda)].any())
+        # A one-component DC first scan clears its column first.
+        cleared = len(acs) + plan.comp_indices[0] if plan.kind == "dc_first" and len(plan.comp) == 1 else -1
+        for k, (t, p) in enumerate(zip(acs + dcs, poison)):
+            assert torch.equal(t[3], torch.zeros_like(p) if k == cleared else p), (plan.kind, k)
+
+
 def test_prog_ac_first_refuses_misaligned_state(cuda):
     """Kernel 8 copies its lookahead table as int4 words and its C entry
     takes the state on a 16-byte boundary: a contiguous state view that
@@ -732,7 +787,7 @@ def test_prog_plan_luts_on_card_equal_lookahead_table(cuda, name):
             on_card = st.to(cuda).luts
             assert on_card.device == cuda and on_card.data_ptr() % 16 == 0
             assert torch.equal(on_card.cpu(), _plan_luts(st.tables, st.huffval))
-            n += on_card.shape[0]
+            n += on_card.shape[0] * on_card.shape[1]
     assert n >= 5
 
 

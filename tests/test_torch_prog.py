@@ -103,7 +103,8 @@ def _fixture(name):
 def test_scan_plan_luts_equal_lookahead_table(name):
     """Each kernel scan's plan carries, per scan component, the 9-bit
     lookahead of that component's Huffman table (DC for a DC first scan,
-    AC otherwise), as wavefront.lookahead_table builds it."""
+    AC otherwise), as wavefront.lookahead_table builds it: one table set,
+    that of the one image."""
     from tpujpeg_torch.kernels import wavefront as wf
 
     port = [bitstream.parse(_fixture(name))]
@@ -113,11 +114,11 @@ def test_scan_plan_luts_equal_lookahead_table(name):
         if kind == "dc_refine":
             continue
         plan = prog.build_scan_plan(port, k)
-        assert plan.luts.dtype == torch.int16 and tuple(plan.luts.shape) == (scan.n_comps, 512)
+        assert plan.luts.dtype == torch.int16 and tuple(plan.luts.shape) == (1, scan.n_comps, 512)
         for sp in range(scan.n_comps):
             key = (0, scan.dc_ids[sp]) if kind == "dc_first" else (1, scan.ac_ids[sp])
             want = wf.lookahead_table(wf.CanonTable.from_spec(scan.huff[key]))
-            assert torch.equal(plan.luts[sp].to(torch.int32), want), (k, sp)
+            assert torch.equal(plan.luts[0, sp].to(torch.int32), want), (k, sp)
             n += 1
     assert n >= 4
 

@@ -187,13 +187,113 @@ def test_gray_group_to_rgb_matches_pil():
 
 
 def test_group_with_different_tables_raises():
+    """Different Huffman tables no longer split a group: the pair (two
+    ``scan_group_key``s, one ``prog_launch_key``) decodes together, each
+    image equal to PIL. A baseline member still raises."""
     datas = [make_jpeg(64, 48, seed=s, progressive=True, subsampling=2, restart_blocks=4) for s in (31, 32)]
     jpegs = [bitstream.parse(d) for d in datas]
     assert prog.scan_group_key(jpegs[0]) != prog.scan_group_key(jpegs[1])
-    with pytest.raises(tpujpeg_torch.JpegUnsupportedError, match="separate groups"):
-        prog.decode_all_scans_to_rgb_batch(jpegs, device="cpu")
+    assert prog.prog_launch_key(jpegs[0]) == prog.prog_launch_key(jpegs[1])
+    rgb, layout, failures = prog.decode_all_scans_to_rgb_batch(jpegs, device="cpu")
+    assert not failures and layout == "nhwc"
+    for i, d in enumerate(datas):
+        np.testing.assert_array_equal(rgb[i].numpy(), pil_decode(d))
     with pytest.raises(tpujpeg_torch.JpegUnsupportedError, match="progressive"):
         prog.decode_all_scans_batch([bitstream.parse(make_jpeg(32, 32, seed=1))], device="cpu")
+
+
+def test_group_with_different_geometries_raises():
+    jpegs = [bitstream.parse(make_jpeg(w, 48, seed=31, progressive=True, subsampling=2, restart_blocks=4))
+             for w in (64, 80)]
+    assert prog.prog_launch_key(jpegs[0]) != prog.prog_launch_key(jpegs[1])
+    with pytest.raises(tpujpeg_torch.JpegUnsupportedError, match="separate groups"):
+        prog.decode_all_scans_to_rgb_batch(jpegs, device="cpu")
+
+
+# Three 4:2:0 progressive files with restarts, each with its own optimized
+# tables: one prog_launch_key, three scan_group_keys. Their lanes per scan
+# (6 or 16 a file) are no multiple of 128, so a plan with several table
+# sets pads between images.
+TSETS = [make_jpeg(64, 48, seed=s, progressive=True, subsampling=2, restart_blocks=3) for s in (61, 62, 63)]
+
+
+def _scan_table_sets(jpegs, k):
+    """The distinct bytes of the tables scan k reads, over the group."""
+    return len({prog.scan_group_key(j)[3 + k][-1] for j in jpegs})
+
+
+def test_table_set_group_plans_one_launch_per_scan_with_a_set_per_image():
+    jpegs = [bitstream.parse(d) for d in TSETS]
+    assert len({prog.scan_group_key(j) for j in jpegs}) == 3
+    assert len({prog.prog_launch_key(j) for j in jpegs}) == 1
+    sets = []
+    for k, step in enumerate(prog.plan_scans(jpegs)):
+        if isinstance(step, prog.DcRefine):
+            continue
+        n = _scan_table_sets(jpegs, k)
+        assert step.n_sets == n and tuple(step.tables.shape[:1]) == tuple(step.luts.shape[:1]) == (n,)
+        assert sorted(set(step.image_set.tolist())) == list(range(n))
+        meta = step.lane_meta.numpy()
+        for i, j in enumerate(jpegs):
+            mine = np.nonzero(meta[:, 0] == i)[0]
+            real = mine[meta[mine, 2] > 0]
+            assert real[0] == mine[0] and (mine[0] % prog.PROG_THREADS == 0 or n == 1)
+            assert np.array_equal(real, np.arange(real[0], real[0] + len(real)))
+            assert int(meta[real, 2].sum()) == prog._seg_geometry(j, j.scans[k])[0]
+            assert not step.seg_bits[mine[meta[mine, 2] == 0]].any()
+        sets.append(n)
+    assert max(sets) == 3
+    # One set (copies of one file): today's plan, lanes back to back.
+    for k, step in enumerate(prog.plan_scans([jpegs[0]] * 2)):
+        if isinstance(step, prog.ScanPlan):
+            n_seg = prog._seg_geometry(jpegs[0], jpegs[0].scans[k])[2]
+            assert step.n_sets == 1 and step.n_lanes == 2 * n_seg and not step.image_set.any()
+
+
+def test_table_set_group_matches_pil_through_both_entries(monkeypatch):
+    jpegs = [bitstream.parse(d) for d in TSETS]
+    rgb, layout, failures = prog.decode_all_scans_to_rgb_batch(jpegs, device="cpu")
+    assert not failures and layout == "nhwc"
+    for i, d in enumerate(TSETS):
+        np.testing.assert_array_equal(rgb[i].numpy(), pil_decode(d))
+    groups = []
+    real = prog.decode_all_scans_to_rgb_batch
+    monkeypatch.setattr(prog, "decode_all_scans_to_rgb_batch",
+                        lambda js, *a, **kw: groups.append(len(js)) or real(js, *a, **kw))
+    res = tpujpeg_torch.decode_batch_on_device(TSETS, device="cpu")
+    assert not res.errors and groups == [3]
+    assert all(st.entropy_engine == "wavefront-prog" for st in res.stats)
+    for i, d in enumerate(TSETS):
+        np.testing.assert_array_equal(res.images[i], pil_decode(d))
+
+
+def _ff_ac_first(jpeg):
+    """Member 1's first AC-first payload all 0xFF: its lanes read invalid
+    codes."""
+    scan = next(s for s in jpeg.scans if s.ss and not s.ah)
+    scan.data = b"\xff" * len(scan.data)
+
+
+def test_table_set_group_isolates_a_corrupt_member(monkeypatch):
+    jpegs = [bitstream.parse(d) for d in TSETS]
+    _ff_ac_first(jpegs[1])
+    rgb, _layout, failures = prog.decode_all_scans_to_rgb_batch(jpegs, device="cpu")
+    assert set(failures) == {1} and isinstance(failures[1], tpujpeg_torch.JpegHuffmanError)
+    for i in (0, 2):
+        np.testing.assert_array_equal(rgb[i].numpy(), pil_decode(TSETS[i]))
+    real = bitstream.parse
+
+    def parse(data):
+        j = real(data)
+        if data is TSETS[1]:
+            _ff_ac_first(j)
+        return j
+
+    monkeypatch.setattr(bitstream, "parse", parse)
+    res = tpujpeg_torch.decode_batch_on_device(TSETS, device="cpu")
+    assert set(res.errors) == {1} and isinstance(res.errors[1], tpujpeg_torch.JpegHuffmanError)
+    for i in (0, 2):
+        np.testing.assert_array_equal(res.images[i], pil_decode(TSETS[i]))
 
 
 KEY_CORPUS = [

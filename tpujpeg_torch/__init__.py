@@ -58,9 +58,9 @@ tpujpeg_torch.cli``; the graft entry points (``entry()``, the 512x512
 transform step, and ``dryrun_multichip(n)``, the sharded paths checked
 over n devices) are in ``graft_entry.py``.
 
-A progressive group (images with one ``wavefront_prog.scan_group_key``:
-same frame, scan script and Huffman tables) decodes through the
-progressive scan kernels; ``decode()`` takes them with
+A progressive group (images with one ``wavefront_prog.prog_launch_key``:
+same frame and scan script, each image with its own Huffman tables)
+decodes through the progressive scan kernels; ``decode()`` takes them with
 ``DecodeConfig(entropy_engine="wavefront")`` and native host entropy
 otherwise, as the reference does.
 

@@ -47,9 +47,14 @@
 //    two word loads per symbol;
 //  * symbols come from a 9-bit lookahead table per Huffman table
 //    (tj_decode_lookahead), the maxcode walk only from length 10. The
-//    tables come with the plan (ScanPlan.luts, built once per scan on the
-//    host by wavefront.lookahead_table) and each CTA copies them into
-//    shared memory with 16-byte loads;
+//    tables come with the plan (ScanPlan.luts, built once per distinct
+//    table on the host by wavefront.lookahead_table) and each CTA copies
+//    them into shared memory with 16-byte loads;
+//  * one launch covers images with different Huffman tables: the plan
+//    holds the distinct table sets and each image's set, and starts each
+//    image's lanes on a CTA boundary where there is more than one set, so
+//    a CTA stages the one set of its first lane's image and the hot loop
+//    reads shared memory as with a single set;
 //  * kernel 7 keeps one predictor register per scan component, picked by
 //    selects (no array indexed at run time), and stages its DC values in
 //    shared memory a few MCUs at a time, so that each row run of them
@@ -99,9 +104,11 @@ typedef unsigned long long u64;
 // The lane plan every progressive kernel takes (kernels/wavefront_prog
 // ScanPlan): rows of W words (W % 4 == 0, rows on 16-byte boundaries),
 // P the power of two >= W; lane_meta [L][3]
-// (image, first MCU, MCUs); tables [n_sp][34] maxcode | valoffset,
-// huffval [n_sp][256] and the 9-bit lookahead tables luts [n_sp][512] of
-// the scan's components, 16-byte aligned.
+// (image, first MCU, MCUs); per table set, tables [n_sets][n_sp][34]
+// maxcode | valoffset, huffval [n_sets][n_sp][256] and the 9-bit
+// lookahead tables luts [n_sets][n_sp][512] of the scan's components,
+// 16-byte aligned; image_set [N], each image's set. With n_sets > 1 no
+// CTA holds lanes of two sets.
 struct ProgLanes {
   const u32* bits;
   int W, P;
@@ -111,20 +118,25 @@ struct ProgLanes {
   const int* tables;
   const uint8_t* huffval;
   const uint16_t* luts;
+  const int* image_set;
+  int n_sets;
   int n_sp;
   int* err_out;
 };
 
-__device__ __forceinline__ void stage_tables(const ProgLanes& a, int* s_tab, uint8_t* s_hv) {
-  for (int i = threadIdx.x; i < a.n_sp * 34; i += blockDim.x) s_tab[i] = a.tables[i];
-  for (int i = threadIdx.x; i < a.n_sp * 256; i += blockDim.x) s_hv[i] = a.huffval[i];
-}
-
-// The plan's lookahead tables into shared memory, 16 bytes a thread
-// (1 KB, 64 int4, per table).
-__device__ __forceinline__ void stage_luts(const ProgLanes& a, uint16_t* s_lut) {
-  const int4* src = (const int4*)a.luts;
-  for (int i = threadIdx.x; i < a.n_sp * 64; i += blockDim.x) ((int4*)s_lut)[i] = __ldg(src + i);
+// The table set of the CTA's first lane's image into shared memory: its
+// tables and symbols, and its lookahead tables 16 bytes a thread (1 KB,
+// 64 int4, per table).
+__device__ __forceinline__ void stage_tables(const ProgLanes& a, int* s_tab, uint8_t* s_hv,
+                                             uint16_t* s_lut) {
+  const size_t lane0 = (size_t)blockIdx.x * blockDim.x;
+  const int set = a.n_sets > 1 ? a.image_set[a.lane_meta[lane0 * 3]] : 0;
+  const int* tab = a.tables + (size_t)set * a.n_sp * 34;
+  const uint8_t* hv = a.huffval + (size_t)set * a.n_sp * 256;
+  const int4* lut = (const int4*)(a.luts + (size_t)set * a.n_sp * 512);
+  for (int i = threadIdx.x; i < a.n_sp * 34; i += blockDim.x) s_tab[i] = tab[i];
+  for (int i = threadIdx.x; i < a.n_sp * 256; i += blockDim.x) s_hv[i] = hv[i];
+  for (int i = threadIdx.x; i < a.n_sp * 64; i += blockDim.x) ((int4*)s_lut)[i] = __ldg(lut + i);
 }
 
 __device__ __forceinline__ int lane_err(const ProgLanes& a, int lane, int err, int cur, int lm) {
@@ -200,8 +212,7 @@ __global__ void __launch_bounds__(TJ_PROG_THREADS) prog_dc_first_kernel(DcFirstA
   __shared__ int s_comp[TJ_PROG_MAX_SP * 4];
   __shared__ int s_bidx[TJ_PROG_MAX_SP * 4 * 4];  // block of (sp, dv, dh) in an MCU
   extern __shared__ int s_out[];                  // [TJ_DC_CHUNK * B][threads]
-  stage_tables(a.ln, s_tab, s_hv);
-  stage_luts(a.ln, s_lut);
+  stage_tables(a.ln, s_tab, s_hv, s_lut);
   for (int i = threadIdx.x; i < a.B * 3; i += blockDim.x) s_blk[i] = a.blk[i / 3][i % 3];
   for (int i = threadIdx.x; i < a.ln.n_sp * 4; i += blockDim.x) s_comp[i] = a.comp[i / 4][i % 4];
   for (int i = threadIdx.x; i < a.B; i += blockDim.x)
@@ -277,8 +288,7 @@ __global__ void __launch_bounds__(TJ_PROG_THREADS) prog_ac_first_kernel(AcArgs a
   __shared__ int s_tab[34];
   __shared__ uint8_t s_hv[256];
   __shared__ __align__(16) uint16_t s_lut[512];
-  stage_tables(a.ln, s_tab, s_hv);
-  stage_luts(a.ln, s_lut);
+  stage_tables(a.ln, s_tab, s_hv, s_lut);
   __syncthreads();
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= a.ln.L) return;
@@ -363,8 +373,7 @@ __global__ void __launch_bounds__(TJ_PROG_THREADS) prog_ac_refine_kernel(AcArgs 
   __shared__ int s_tab[34];
   __shared__ uint8_t s_hv[256];
   __shared__ __align__(16) uint16_t s_lut[512];
-  stage_tables(a.ln, s_tab, s_hv);
-  stage_luts(a.ln, s_lut);
+  stage_tables(a.ln, s_tab, s_hv, s_lut);
   __syncthreads();
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= a.ln.L) return;
@@ -470,25 +479,25 @@ static bool aligned16(const void* p) { return p && ((uintptr_t)p & 15u) == 0; }
 
 static bool lanes_ok(const ProgLanes& l) {
   return l.W > 0 && l.W % 4 == 0 && aligned16(l.bits) && l.P >= l.W && (l.P & (l.P - 1)) == 0 &&
-         l.n_sp > 0 && l.n_sp <= TJ_PROG_MAX_SP;
+         l.n_sp > 0 && l.n_sp <= TJ_PROG_MAX_SP && aligned16(l.luts) && l.image_set && l.n_sets > 0;
 }
 
 static int blocks_for(int L) { return (L + TJ_PROG_THREADS - 1) / TJ_PROG_THREADS; }
 
-// luts: uint16 [n_sp][512] lookahead tables (wavefront.lookahead_table),
-// 16-byte aligned.
+// luts: uint16 [n_sets][n_sp][512] lookahead tables
+// (wavefront.lookahead_table), 16-byte aligned; image_set: int32 [N].
 extern "C" int tj_prog_dc_first(const void* bits, int W, int P, const void* seg_bits,
                                 const void* lane_meta, int L, const void* tables,
-                                const void* huffval, const void* luts, int n_sp, const int* blk,
-                                int B, const int* comp, int mcus_x, int al, void* d0, void* d1,
-                                void* d2, void* d3, void* err, void* stream) {
+                                const void* huffval, const void* luts, const void* image_set,
+                                int n_sets, int n_sp, const int* blk, int B, const int* comp,
+                                int mcus_x, int al, void* d0, void* d1, void* d2, void* d3,
+                                void* err, void* stream) {
   if (L <= 0) return (int)cudaSuccess;
   DcFirstArgs a{};
   a.ln = ProgLanes{(const u32*)bits, W, P, (const int*)seg_bits, (const int*)lane_meta, L,
-                   (const int*)tables, (const uint8_t*)huffval, (const uint16_t*)luts, n_sp,
-                   (int*)err};
-  if (!lanes_ok(a.ln) || !aligned16(luts) || B <= 0 || B > TJ_PROG_MAX_B || mcus_x <= 0 ||
-      al < 0 || al > 15)
+                   (const int*)tables, (const uint8_t*)huffval, (const uint16_t*)luts,
+                   (const int*)image_set, n_sets, n_sp, (int*)err};
+  if (!lanes_ok(a.ln) || B <= 0 || B > TJ_PROG_MAX_B || mcus_x <= 0 || al < 0 || al > 15)
     return (int)cudaErrorInvalidValue;
   a.B = B;
   a.mcus_x = mcus_x;
@@ -513,14 +522,15 @@ extern "C" int tj_prog_dc_first(const void* bits, int W, int P, const void* seg_
 
 static int launch_ac(bool refine, const void* bits, int W, int P, const void* seg_bits,
                      const void* lane_meta, int L, const void* tables, const void* huffval,
-                     const void* luts, int width_blocks, int padded_wb, int padded_blocks, int ss,
-                     int se, int al, void* state, void* err, void* stream) {
+                     const void* luts, const void* image_set, int n_sets, int width_blocks,
+                     int padded_wb, int padded_blocks, int ss, int se, int al, void* state,
+                     void* err, void* stream) {
   if (L <= 0) return (int)cudaSuccess;
   AcArgs a{};
   a.ln = ProgLanes{(const u32*)bits, W, P, (const int*)seg_bits, (const int*)lane_meta, L,
-                   (const int*)tables, (const uint8_t*)huffval, (const uint16_t*)luts, 1,
-                   (int*)err};
-  if (!lanes_ok(a.ln) || !aligned16(luts) || width_blocks <= 0 ||
+                   (const int*)tables, (const uint8_t*)huffval, (const uint16_t*)luts,
+                   (const int*)image_set, n_sets, 1, (int*)err};
+  if (!lanes_ok(a.ln) || width_blocks <= 0 ||
       padded_wb < width_blocks || padded_blocks <= 0 || ss < 1 || se < ss || se > 63 || al < 0 ||
       al > 15 || !aligned16(state))
     return (int)cudaErrorInvalidValue;
@@ -541,22 +551,23 @@ static int launch_ac(bool refine, const void* bits, int W, int P, const void* se
 // Kernel 8: state is the int32 [N, padded_blocks, 64] AC array of the
 // scan's component, on a 16-byte boundary; a lane's MCU g is block
 // (g / width_blocks, g % width_blocks) of the padded grid. luts: the
-// component's uint16 [512] lookahead table, 16-byte aligned.
+// component's uint16 [n_sets][512] lookahead tables, 16-byte aligned;
+// image_set: int32 [N].
 extern "C" int tj_prog_ac_first(const void* bits, int W, int P, const void* seg_bits,
                                 const void* lane_meta, int L, const void* tables,
-                                const void* huffval, const void* luts, int width_blocks,
-                                int padded_wb, int padded_blocks, int ss, int se, int al,
-                                void* state, void* err, void* stream) {
-  return launch_ac(false, bits, W, P, seg_bits, lane_meta, L, tables, huffval, luts, width_blocks,
-                   padded_wb, padded_blocks, ss, se, al, state, err, stream);
+                                const void* huffval, const void* luts, const void* image_set,
+                                int n_sets, int width_blocks, int padded_wb, int padded_blocks,
+                                int ss, int se, int al, void* state, void* err, void* stream) {
+  return launch_ac(false, bits, W, P, seg_bits, lane_meta, L, tables, huffval, luts, image_set,
+                   n_sets, width_blocks, padded_wb, padded_blocks, ss, se, al, state, err, stream);
 }
 
 // Kernel 9: as kernel 8 (each block moves as 16 int4 words).
 extern "C" int tj_prog_ac_refine(const void* bits, int W, int P, const void* seg_bits,
                                  const void* lane_meta, int L, const void* tables,
-                                 const void* huffval, const void* luts, int width_blocks,
-                                 int padded_wb, int padded_blocks, int ss, int se, int al,
-                                 void* state, void* err, void* stream) {
-  return launch_ac(true, bits, W, P, seg_bits, lane_meta, L, tables, huffval, luts, width_blocks,
-                   padded_wb, padded_blocks, ss, se, al, state, err, stream);
+                                 const void* huffval, const void* luts, const void* image_set,
+                                 int n_sets, int width_blocks, int padded_wb, int padded_blocks,
+                                 int ss, int se, int al, void* state, void* err, void* stream) {
+  return launch_ac(true, bits, W, P, seg_bits, lane_meta, L, tables, huffval, luts, image_set,
+                   n_sets, width_blocks, padded_wb, padded_blocks, ss, se, al, state, err, stream);
 }

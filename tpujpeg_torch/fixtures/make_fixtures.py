@@ -38,7 +38,10 @@ ROOT = os.path.dirname(os.path.dirname(HERE))
 # "prog_rst_2048" progressive with its restart markers; "422_2048" and
 # "444_2048" the same image and restart interval at 4:2:2 and 4:4:4.
 # "rst_rows_420" restarts every MCU row, in segments over the restart
-# planner's row cap.
+# planner's row cap. "prog_tsets_0".."_2" are three images of one odd size
+# written progressive with restarts, each with its own optimized Huffman
+# tables: one launch of each scan kernel with three table sets, and
+# padding lanes between the images.
 FIXTURES = {
     "420_2048": dict(w=2048, h=2048, seed=7, quality=85, subsampling=2, restart_blocks=4),
     "420_odd": dict(w=129, h=65, seed=9, quality=85, subsampling=2, restart_blocks=3),
@@ -58,10 +61,12 @@ FIXTURES = {
     "rst_rows_420": dict(w=512, h=384, seed=14, quality=85, subsampling=2, restart_rows=1),
     "422_2048": dict(w=2048, h=2048, seed=7, quality=85, subsampling=1, restart_blocks=4),
     "444_2048": dict(w=2048, h=2048, seed=7, quality=85, subsampling=0, restart_blocks=4),
+    **{f"prog_tsets_{i}": dict(w=201, h=153, seed=71 + i, quality=85, subsampling=2, progressive=True,
+                               restart_blocks=2) for i in range(3)},
 }
 STAGED = ("prog_2048", "multiscan")
 NORST = ("norst_2048", "rst_rows_420")
-PROGRESSIVE = ("prog_rst_2048", "prog_444", "prog_gray")
+PROGRESSIVE = ("prog_rst_2048", "prog_444", "prog_gray", "prog_tsets_0", "prog_tsets_1", "prog_tsets_2")
 
 # One member of a batch of `batch` copies of `fixture` gets its scan
 # payload (restart markers included) overwritten with `fill` bytes; the

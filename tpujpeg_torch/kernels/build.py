@@ -87,7 +87,8 @@ _SIGNATURES = {
     "tj_prog_dc_first": [
         _P, _I, _I,              # bits, W, P
         _P, _P, _I,              # seg_bits, lane_meta, L
-        _P, _P, _P, _I,          # tables, huffval, luts, n_sp
+        _P, _P, _P,              # tables, huffval, luts
+        _P, _I, _I,              # image_set, n_sets, n_sp
         _P, _I, _P, _I, _I,      # blk (host), B, comp (host), mcus_x, al
         _P, _P, _P, _P,          # DC columns 0..3
         _P, _P,                  # err, stream
@@ -96,6 +97,7 @@ _SIGNATURES = {
         _P, _I, _I,              # bits, W, P
         _P, _P, _I,              # seg_bits, lane_meta, L
         _P, _P, _P,              # tables, huffval, luts
+        _P, _I,                  # image_set, n_sets
         _I, _I, _I,              # width_blocks, padded_wb, padded_blocks
         _I, _I, _I,              # ss, se, al
         _P, _P, _P,              # state, err, stream

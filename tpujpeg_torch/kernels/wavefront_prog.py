@@ -14,7 +14,7 @@ Port of ``tpujpeg/kernels/wavefront_prog.py``: the scan planner
 (CUDA kernels in ``csrc/prog.cu``), and the driver and entries
 ``apply_scan_batch``, ``decode_all_scans_batch``,
 ``decode_all_scans_to_rgb_batch``, ``resolve_scan_errors``,
-``decode_all_scans`` and ``scan_group_key``.
+``decode_all_scans``, ``scan_group_key`` and ``prog_launch_key``.
 
 The batch state is, per frame component, int32 [N, padded_blocks, 64]
 zigzag AC coefficients (column 0 left 0) and int32 [N, padded_blocks] DC
@@ -28,14 +28,20 @@ band of each block in place. Lanes are a flat [L] axis (no [G, 8, K]
 groups) and tables are runtime data (the reference's baked/table-dynamic
 split collapses into one form, so its ``dyn`` has no counterpart); each
 plan carries its tables' 9-bit lookahead (``ScanPlan.luts``), built once
-per scan on the host, which the kernels copy into shared memory. The
-planner keeps the reference's limits (the W rule, ``MAX_WORDS``, the
-one-segment scan over 2040 bytes) so that both decoders accept and
-reject the same streams.
+per distinct table on the host, which the kernels copy into shared
+memory. The planner keeps the reference's limits (the W rule,
+``MAX_WORDS``, the one-segment scan over 2040 bytes) so that both
+decoders accept and reject the same streams.
 
-The reference takes every scan's tables and geometry from the group's
-first image; here a group whose members' ``scan_group_key`` differ raises
-JpegUnsupportedError.
+A group is keyed by ``prog_launch_key``: one frame geometry and scan
+script, whatever Huffman tables each image carries (the reference keys by
+``scan_group_key``, tables included, and takes every scan's tables from
+the group's first image). A scan's plan holds the group's distinct table
+sets for that scan (``ScanPlan.tables``, ``huffval``, ``luts``, one entry
+per set) and each image's set (``ScanPlan.image_set``); with more than one
+set each image's lanes start on a CTA boundary, so that a CTA stages the
+one set of its first lane's image. A group whose members' keys differ
+raises JpegUnsupportedError.
 
 Each kernel's plain version (``dc_first_plain``, ``ac_first_plain``,
 ``ac_refine_plain``) is a lane-vectorized torch state machine with the
@@ -120,14 +126,23 @@ def _fill_rows(scan, n_seg, W, out_words, out_bits) -> None:
         native_entropy.destuff_rows(scan, n_seg, W, out_words, out_bits)
 
 
+def _table_ids(scan, dc: bool) -> List[Tuple[int, int]]:
+    """The (class, id) of the Huffman table each scan component reads."""
+    return [(0, scan.dc_ids[sp]) if dc else (1, scan.ac_ids[sp]) for sp in range(scan.n_comps)]
+
+
 def _tables_for_scan(scan, dc: bool) -> Tuple[wf.CanonTable, ...]:
     out = []
-    for sp in range(scan.n_comps):
-        key = (0, scan.dc_ids[sp]) if dc else (1, scan.ac_ids[sp])
+    for key in _table_ids(scan, dc):
         if key not in scan.huff:
             raise JpegSyntaxError("missing Huffman table")
         out.append(wf.CanonTable.from_spec(scan.huff[key]))
     return tuple(out)
+
+
+# Lanes per CTA of kernels 7-9 (TJ_PROG_THREADS, csrc/prog.cu): a plan
+# with more than one table set starts each image's lanes on a multiple.
+PROG_THREADS = 128
 
 
 @dataclasses.dataclass
@@ -135,15 +150,19 @@ class ScanPlan:
     """Scan k of a group as flat lanes, one per restart segment, image-major.
     A lane's MCU g places its blocks at block row (g // mcus_x) * v + dv
     and column (g % mcus_x) * h + dh of its component's padded grid; a
-    one-component scan has h = v = 1 and mcus_x = width_blocks."""
+    one-component scan has h = v = 1 and mcus_x = width_blocks. The
+    tables come in S sets, the group's distinct ones for this scan; with
+    S > 1 each image's first lane is a multiple of PROG_THREADS, and the
+    lanes between images are padding: no MCUs, the image before them."""
 
     kind: str                # 'dc_first', 'ac_first' or 'ac_refine'
     bits: torch.Tensor       # int32 [L, W] big-endian words
     seg_bits: torch.Tensor   # int32 [L] destuffed segment length in bits
     lane_meta: torch.Tensor  # int32 [L, 3] (image, first MCU, MCUs)
-    tables: torch.Tensor     # int32 [n_sp, 34] maxcode[17] | valoffset[17]
-    huffval: torch.Tensor    # uint8 [n_sp, 256]
-    luts: torch.Tensor       # int16 [n_sp, 512] 9-bit lookahead (wavefront.lookahead_table)
+    tables: torch.Tensor     # int32 [S, n_sp, 34] maxcode[17] | valoffset[17]
+    huffval: torch.Tensor    # uint8 [S, n_sp, 256]
+    luts: torch.Tensor       # int16 [S, n_sp, 512] 9-bit lookahead (wavefront.lookahead_table)
+    image_set: torch.Tensor  # int32 [N] the table set of each image
     comp_indices: Tuple[int, ...]                 # frame component per scan component
     blk: Tuple[Tuple[int, int, int], ...]         # (scan component, dv, dh) per block of an MCU
     comp: Tuple[Tuple[int, int, int, int], ...]   # (h, v, padded_wb, padded_blocks) per scan component
@@ -163,6 +182,10 @@ class ScanPlan:
         return int(self.bits.shape[1])
 
     @property
+    def n_sets(self) -> int:
+        return int(self.tables.shape[0])
+
+    @property
     def lane_m(self) -> torch.Tensor:
         return self.lane_meta[:, 2]
 
@@ -172,6 +195,7 @@ class ScanPlan:
                 self, bits=self.bits.to(device), seg_bits=self.seg_bits.to(device),
                 lane_meta=self.lane_meta.to(device), tables=self.tables.to(device),
                 huffval=self.huffval.to(device), luts=self.luts.to(device),
+                image_set=self.image_set.to(device),
             )
 
 
@@ -182,14 +206,30 @@ def _lookahead(table: wf.CanonTable) -> torch.Tensor:
     return wf.lookahead_table(table).to(torch.int16)
 
 
+def _table_sets(jpegs, k: int, dc: bool) -> Tuple[List[Tuple[wf.CanonTable, ...]], List[int]]:
+    """Scan k's distinct table sets over the group, told apart by their
+    bytes, in the order of first use, and each image's set."""
+    index: Dict[Tuple, int] = {}
+    sets, image_set = [], []
+    for j in jpegs:
+        scan = j.scans[k]
+        key = tuple(_spec_bytes(scan.huff.get(t)) for t in _table_ids(scan, dc))
+        if key not in index:
+            index[key] = len(sets)
+            sets.append(_tables_for_scan(scan, dc))
+        image_set.append(index[key])
+    return sets, image_set
+
+
 def _scan_fields(jpegs, k: int) -> dict:
-    """The ScanPlan fields that are not lanes: kind, tables and placement,
-    from the group's first image."""
+    """The ScanPlan fields that are not lanes: kind, table sets and
+    placement (from the group's first image; every image of a group
+    places its blocks alike)."""
     scan, frame = jpegs[0].scans[k], jpegs[0].frame
     kind = scan_kind(scan)
     if kind == "dc_refine":
         raise ValueError("a DC refinement scan has no lane plan")
-    tbls = _tables_for_scan(scan, dc=kind == "dc_first")
+    sets, image_set = _table_sets(jpegs, k, dc=kind == "dc_first")
     if scan.interleaved:
         cis = tuple(scan.comp_indices)
         comps = [frame.components[ci] for ci in cis]
@@ -204,9 +244,10 @@ def _scan_fields(jpegs, k: int) -> dict:
         mcus_x = c.width_blocks
     return dict(
         kind=kind,
-        tables=torch.tensor([list(t.maxcode) + list(t.valoffset) for t in tbls], dtype=torch.int32),
-        huffval=torch.tensor([list(t.huffval) for t in tbls], dtype=torch.uint8),
-        luts=torch.stack([_lookahead(t) for t in tbls]),
+        tables=torch.tensor([[list(t.maxcode) + list(t.valoffset) for t in s] for s in sets], dtype=torch.int32),
+        huffval=torch.tensor([[list(t.huffval) for t in s] for s in sets], dtype=torch.uint8),
+        luts=torch.stack([torch.stack([_lookahead(t) for t in s]) for s in sets]),
+        image_set=torch.tensor(image_set, dtype=torch.int32),
         comp_indices=cis, blk=blk, comp=comp, mcus_x=mcus_x,
         ss=scan.ss, se=scan.se, al=scan.al, n_images=len(jpegs),
     )
@@ -214,7 +255,7 @@ def _scan_fields(jpegs, k: int) -> dict:
 
 def build_scan_plan(jpegs: Sequence, k: int) -> ScanPlan:
     """Lane plan for scan k of every image of a group (one
-    ``scan_group_key``). Raises as the reference's ScanPlan does:
+    ``prog_launch_key``). Raises as the reference's ScanPlan does:
     JpegTruncatedError for missing restart segments, JpegUnsupportedError
     for a one-segment scan over 2040 bytes or a segment over MAX_WORDS
     words."""
@@ -225,22 +266,26 @@ def build_scan_plan(jpegs: Sequence, k: int) -> ScanPlan:
     W = min(-(-W // 32) * 32, wf.MAX_WORDS + 32)
     if W > wf.MAX_WORDS:
         raise JpegUnsupportedError(f"progressive segment too long ({W} words)")
-    L = sum(n_seg for _t, _r, n_seg in geo)
-    bits = np.empty((L, W), dtype=np.int32)
+    fields = _scan_fields(jpegs, k)
+    # One table set: lanes back to back. Several: each image from a CTA
+    # boundary on, so that no CTA holds lanes of two sets.
+    align = PROG_THREADS if fields["tables"].shape[0] > 1 else 1
+    starts = np.cumsum([0] + [-(-n_seg // align) * align for _t, _r, n_seg in geo])
+    L = int(starts[-2]) + geo[-1][2]
+    bits = np.zeros((L, W), dtype=np.int32)
     seg_bits = np.zeros(L, dtype=np.int32)
     meta = np.zeros((L, 3), dtype=np.int32)
-    lane0 = 0
     for ii, (j, (total, ri, n_seg)) in enumerate(zip(jpegs, geo)):
+        lane0, end = int(starts[ii]), min(int(starts[ii + 1]), L)
         _fill_rows(j.scans[k], n_seg, W, bits[lane0 : lane0 + n_seg], seg_bits[lane0 : lane0 + n_seg])
         fm = np.arange(n_seg, dtype=np.int64) * ri
-        meta[lane0 : lane0 + n_seg, 0] = ii
+        meta[lane0:end, 0] = ii
         meta[lane0 : lane0 + n_seg, 1] = fm
         meta[lane0 : lane0 + n_seg, 2] = np.minimum(ri, total - fm)
-        lane0 += n_seg
     return ScanPlan(
         bits=torch.from_numpy(bits), seg_bits=torch.from_numpy(seg_bits),
         lane_meta=torch.from_numpy(meta), n_mcus=int(meta[:, 2].max()) if L else 0,
-        **_scan_fields(jpegs, k),
+        **fields,
     )
 
 
@@ -271,6 +316,31 @@ def _receive_raw(win: torch.Tensor, length: torch.Tensor, n: torch.Tensor) -> to
     return torch.where(n > 0, after >> (32 - n), 0)
 
 
+def _lane_decoder(plan: ScanPlan, sp: int):
+    """decode(win) -> (symbol, code length) for every lane, each with table
+    sp of its image's set: ``wavefront._decode_symbol`` with per-lane
+    maxcodes, value offsets and symbol lists."""
+    tab = plan.tables[:, sp].to(torch.int64)                                 # [S, 34]
+    lane_set = plan.image_set.to(torch.int64)[plan.lane_meta[:, 0].to(torch.int64)]
+    mc = tab[lane_set, :17].T.contiguous()                                    # [17, L]
+    vo = tab[lane_set, 17:].T.contiguous()
+    hv = plan.huffval[:, sp].to(torch.int64).reshape(-1)
+    base = lane_set * 256
+    lengths = [l for l in range(16, 0, -1) if bool((tab[:, l] >= 0).any())]
+
+    def decode(win):
+        length = torch.full_like(win, 17)
+        idx = torch.zeros_like(win)
+        for l in lengths:
+            peek = win >> (32 - l)
+            sel = peek <= mc[l]
+            length = torch.where(sel, l, length)
+            idx = torch.where(sel, peek + vo[l], idx)
+        return hv[base + idx.clamp(0, 255)], length
+
+    return decode
+
+
 def _lane_vectors(plan: ScanPlan):
     img = plan.lane_meta[:, 0].to(torch.int64)
     first = plan.lane_meta[:, 1].to(torch.int64)
@@ -296,8 +366,7 @@ def dc_first_plain(plan: ScanPlan, cols: Sequence[torch.Tensor], err: torch.Tens
     dev = plan.bits.device
     L = plan.n_lanes
     window = wf.lane_windows(plan.bits)
-    tbl = plan.tables.tolist()
-    hv = plan.huffval.to(torch.int64)
+    decoders = [_lane_decoder(plan, sp) for sp in range(len(plan.comp))]
     img, first, lane_m = _lane_vectors(plan)
     flat = [c.view(-1) for c in cols]
     cur = torch.zeros(L, dtype=torch.int64, device=dev)
@@ -310,7 +379,7 @@ def dc_first_plain(plan: ScanPlan, cols: Sequence[torch.Tensor], err: torch.Tens
         for sp, dv, dh in plan.blk:
             ok = active & (e == 0)
             win = window(cur)
-            t, dlen = wf._decode_symbol(win, tbl[sp][:17], tbl[sp][17:], hv[sp])
+            t, dlen = decoders[sp](win)
             bad = ok & ((dlen > 16) | (t > 15))
             t = torch.where(t > 15, 0, t)
             pred[sp] = pred[sp] + torch.where(ok, wf._receive_extend(win, dlen, t), 0)
@@ -331,9 +400,7 @@ def ac_first_plain(plan: ScanPlan, state: torch.Tensor, err: torch.Tensor) -> No
     L = plan.n_lanes
     ss, se, al = plan.ss, plan.se, plan.al
     window = wf.lane_windows(plan.bits)
-    tbl = plan.tables[0].tolist()
-    mc, vo = tbl[:17], tbl[17:]
-    hv = plan.huffval[0].to(torch.int64)
+    decode = _lane_decoder(plan, 0)
     img, first, lane_m = _lane_vectors(plan)
     flat = state.view(-1)
     cur = torch.zeros(L, dtype=torch.int64, device=dev)
@@ -349,7 +416,7 @@ def ac_first_plain(plan: ScanPlan, state: torch.Tensor, err: torch.Tensor) -> No
         busy = busy0 & (k <= se)
         while bool(busy.any()):
             win = window(cur)
-            rs, alen = wf._decode_symbol(win, mc, vo, hv)
+            rs, alen = decode(win)
             r, s = rs >> 4, rs & 0x0F
             val = wf._receive_extend(win, alen, s)
             is_eob = (s == 0) & (r < 15)
@@ -385,9 +452,7 @@ def ac_refine_plain(plan: ScanPlan, state: torch.Tensor, err: torch.Tensor) -> N
     ss, se = plan.ss, plan.se
     p1, m1 = 1 << plan.al, -(1 << plan.al)
     window = wf.lane_windows(plan.bits)
-    tbl = plan.tables[0].tolist()
-    mc, vo = tbl[:17], tbl[17:]
-    hv = plan.huffval[0].to(torch.int64)
+    decode = _lane_decoder(plan, 0)
     img, first, lane_m = _lane_vectors(plan)
     rows = state.view(-1, 64)
     kio = torch.arange(64, device=dev)[None, :]
@@ -412,7 +477,7 @@ def ac_refine_plain(plan: ScanPlan, state: torch.Tensor, err: torch.Tensor) -> N
             # Symbol decode (mode SYMBOL).
             dec = mode == _MODE_SYMBOL
             win = window(cur)
-            rs, alen = wf._decode_symbol(win, mc, vo, hv)
+            rs, alen = decode(win)
             badc = dec & (alen > 16)
             rr, ds = rs >> 4, rs & 0x0F
             bads = dec & (ds > 1)
@@ -478,8 +543,9 @@ def ac_refine_plain(plan: ScanPlan, state: torch.Tensor, err: torch.Tensor) -> N
 
 def _lane_specs(plan: ScanPlan, err: torch.Tensor):
     return [(plan.bits, torch.int32, 2), (plan.seg_bits, torch.int32, 1),
-            (plan.lane_meta, torch.int32, 2), (plan.tables, torch.int32, 2),
-            (plan.huffval, torch.uint8, 2), (plan.luts, torch.int16, 2), (err, torch.int32, 1)]
+            (plan.lane_meta, torch.int32, 2), (plan.tables, torch.int32, 3),
+            (plan.huffval, torch.uint8, 3), (plan.luts, torch.int16, 3),
+            (plan.image_set, torch.int32, 1), (err, torch.int32, 1)]
 
 
 def _check_state(name: str, t: torch.Tensor, shape: Tuple[int, ...]) -> None:
@@ -500,7 +566,8 @@ def _row_args(plan: ScanPlan):
     W = plan.n_words
     return (plan.bits.data_ptr(), W, 1 << max(W - 1, 1).bit_length(),
             plan.seg_bits.data_ptr(), plan.lane_meta.data_ptr(), plan.n_lanes,
-            plan.tables.data_ptr(), plan.huffval.data_ptr(), plan.luts.data_ptr())
+            plan.tables.data_ptr(), plan.huffval.data_ptr(), plan.luts.data_ptr(),
+            plan.image_set.data_ptr(), plan.n_sets)
 
 
 def dc_first(plan: ScanPlan, dcs: Sequence[torch.Tensor], err: torch.Tensor, *,
@@ -531,6 +598,7 @@ def dc_first(plan: ScanPlan, dcs: Sequence[torch.Tensor], err: torch.Tensor, *,
         comp.ctypes.data, plan.mcus_x, plan.al, *ptrs, err.data_ptr())
     build.raise_on_error(rc, "prog_dc_first")
     build.launched("prog_dc_first")
+    spans.count(spans.PROG_TSETS, plan.n_sets)
 
 
 def _launch_ac(name: str, plan: ScanPlan, state: torch.Tensor, err: torch.Tensor) -> None:
@@ -546,6 +614,7 @@ def _launch_ac(name: str, plan: ScanPlan, state: torch.Tensor, err: torch.Tensor
         state.data_ptr(), err.data_ptr())
     build.raise_on_error(rc, name)
     build.launched(name)
+    spans.count(spans.PROG_TSETS, plan.n_sets)
 
 
 def ac_first(plan: ScanPlan, state: torch.Tensor, err: torch.Tensor, *, plain: bool = False) -> None:
@@ -636,10 +705,12 @@ def build_dc_refine(jpegs: Sequence, k: int) -> DcRefine:
 
 
 def scan_group_key(jpeg) -> Tuple:
-    """Images whose keys match share every scan's launch: the same frame
-    geometry and an identical scan script (kind, band, successive
-    approximation bits, components, and the bytes of each Huffman table a
-    kernel reads). Restart intervals and segment lengths may differ."""
+    """The reference's group key: the same frame geometry and an identical
+    scan script (kind, band, successive approximation bits, components,
+    and the bytes of each Huffman table a kernel reads). Restart intervals
+    and segment lengths may differ. The port groups by the coarser
+    ``prog_launch_key``; this key stays the reference's, for those who
+    group as it does."""
     frame = jpeg.frame
     parts: list = [frame.height, frame.width, tuple((c.h, c.v) for c in frame.components)]
     for scan in jpeg.scans:
@@ -661,18 +732,29 @@ def _spec_bytes(spec) -> Optional[bytes]:
     return spec.counts.tobytes() + spec.values.tobytes()
 
 
+def prog_launch_key(jpeg) -> Tuple:
+    """Images whose keys match share each scan kernel's launch: the same
+    frame geometry and sampling and an identical scan script (interleaving,
+    components, band, successive approximation bits). Unlike
+    ``scan_group_key`` it leaves out the Huffman tables: a plan carries
+    one table set per distinct set of its images."""
+    frame = jpeg.frame
+    return (frame.height, frame.width, tuple((c.h, c.v) for c in frame.components),
+            tuple((s.interleaved, tuple(s.comp_indices), s.ss, s.se, s.ah, s.al) for s in jpeg.scans))
+
+
 def check_group(jpegs: Sequence) -> None:
     """Raise JpegUnsupportedError unless `jpegs` is a non-empty group of
-    progressive frames with one scan_group_key."""
+    progressive frames with one prog_launch_key."""
     if not jpegs:
         raise JpegUnsupportedError("empty group")
     for j in jpegs:
         if not j.frame.progressive:
             raise JpegUnsupportedError("not a progressive frame")
-    key0 = scan_group_key(jpegs[0])
-    if any(scan_group_key(j) != key0 for j in jpegs[1:]):
+    key0 = prog_launch_key(jpegs[0])
+    if any(prog_launch_key(j) != key0 for j in jpegs[1:]):
         raise JpegUnsupportedError(
-            "progressive group with different frames, scan scripts or Huffman tables: "
+            "progressive group with different frames or scan scripts: "
             "decode its images in separate groups")
 
 
@@ -775,7 +857,7 @@ def resolve_scan_errors(errs: Sequence[torch.Tensor], kernel_plans: Sequence[Sca
 def decode_all_scans_batch(
     jpegs: Sequence, device="cuda"
 ) -> Tuple[List[Optional[List[torch.Tensor]]], List[Optional[List[torch.Tensor]]], Dict[int, Exception]]:
-    """Progressive entropy decode of a group (one ``scan_group_key``) on
+    """Progressive entropy decode of a group (one ``prog_launch_key``) on
     `device`: scan k of every image in one launch. Returns (states, dcs,
     failures): states[i] is image i's per-component int32 [padded_blocks,
     64] zigzag AC (column 0 zero) and dcs[i] its int32 [padded_blocks] DC

@@ -7,8 +7,9 @@ the reference's two phases: it launches every progressive group and every
 launch group with deferred errors (nothing read back), then resolves
 them in order, popping each as it goes so that its RGB can be released.
 
-- Progressive images group by ``scan_group_key`` and color space and run
-  kernels 7-9, 6 and the color stage per group
+- Progressive images group by ``prog_launch_key`` (geometry and scan
+  script, whatever each image's Huffman tables) and color space and run
+  kernels 7-9, 6 and the color stage once per group
   (``decode_all_scans_to_rgb_batch``). A group that raises goes image by
   image: the scan kernels first, then host entropy and the device
   transform where an image is outside their scope.
@@ -233,7 +234,7 @@ def decode_batch_on_device(datas: Sequence[bytes], config: DecodeConfig = DEFAUL
     groups: Dict[Tuple, List[int]] = {}
     for i in progressive:
         try:
-            key = (wp.scan_group_key(jpegs[i]), bitstream.color_space(jpegs[i]))
+            key = (wp.prog_launch_key(jpegs[i]), bitstream.color_space(jpegs[i]))
         except Exception:  # an unkeyable stream decodes alone
             key = ("solo", i)
         groups.setdefault(key, []).append(i)

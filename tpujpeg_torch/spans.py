@@ -35,9 +35,10 @@ Span names, from the entries down: ``tpujpeg_torch.decode`` (one per
 masks copied to the device) and ``tpujpeg_torch.card_wait`` (every host
 block on the card). Counters: ``launch`` (every kernel launch),
 ``a_buckets`` (for each kernel-A launch of a stream chunk, the geometry
-buckets it decodes), and for each marker-free plan split for a card
-``norst_lanes`` (its lanes) and ``norst_wave`` (the lanes one wave of
-kernel A holds there).
+buckets it decodes), ``prog_tsets`` (for each launch of kernel 7, 8 or 9,
+the Huffman table sets it decodes), and for each marker-free plan split
+for a card ``norst_lanes`` (its lanes) and ``norst_wave`` (the lanes one
+wave of kernel A holds there).
 """
 
 from __future__ import annotations
@@ -69,6 +70,7 @@ COPY_IN = "tpujpeg_torch.copy_in"
 CARD_WAIT = "tpujpeg_torch.card_wait"
 LAUNCH = "launch"
 A_BUCKETS = "a_buckets"
+PROG_TSETS = "prog_tsets"
 NORST_LANES = "norst_lanes"
 NORST_WAVE = "norst_wave"
 

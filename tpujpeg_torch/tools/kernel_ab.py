@@ -33,6 +33,16 @@ and shared memory). The fixtures are read from this tool's checkout, so
 every tree gets the same inputs. It uses only entry points that every
 checkout since kernel A's mixed form (``wavefront.combine_plans``) has.
 
+Kernels 7, 8 and 9 also run on one chunk of the stream_2048_prog cell's
+shape (PROG_CHUNK: 32 distinct 2048^2 q85 4:2:0 progressive images with a
+restart every 4 MCUs, made once with tests/corpus.py, PIL, each with its
+own optimized Huffman tables), summed over the scans of their kind: each
+scan as 32 one-image launches (/chunk_images, what a planner that keys
+groups by the tables' bytes launches) and, where the tree's planner takes
+the 32 as one group, as one launch over their table sets (/chunk, checked
+equal to the one-image launches), with kernel 9's bound for the chunk by
+jpegbench/roofline.py's count (payload and band bytes).
+
 Every kernel is timed two ways in the same process. ``ms``: the card
 sleeps (torch.cuda._sleep) before the start event until every launch of
 the window is queued, so the window holds device time only
@@ -65,15 +75,45 @@ import hashlib
 import io
 import json
 import os
+import pickle
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(os.path.dirname(HERE), "fixtures")
 BATCH = 32
+
+
+# One stream chunk of the stream_2048_prog cell's shape (2048^2, q85, 4:2:0,
+# progressive, a restart every 4 MCUs): its images' seeds.
+PROG_CHUNK = range(32)
+
+
+def prog_chunk():
+    """The bytes of PROG_CHUNK's images, from this tool's checkout's
+    tests/corpus.py (PIL)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(HERE)), "tests"))
+    from corpus import make_jpeg
+
+    return [make_jpeg(2048, 2048, seed=s, quality=85, subsampling=2, progressive=True, restart_blocks=4)
+            for s in PROG_CHUNK]
+
+
+def kernel_9_bound_ms(datas) -> float:
+    """Kernel 9's least time on every AC refinement scan of `datas`, by
+    jpegbench/roofline.py's count (payload and band bytes, no changed
+    sectors: a lower bound)."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(HERE)))
+    from jpegbench import roofline
+    from jpegbench.reference import bitstream
+
+    work = [roofline.kernel_9_work(j, k) for j in map(bitstream.parse, datas)
+            for k, scan in enumerate(j.scans) if roofline.is_ac_refine(scan)]
+    return roofline.bound(sum(b for b, _o in work), sum(o for _b, o in work))[0]
 
 
 # One stream chunk of jpegbench/configs/imagenet_shard.json: 32 images of its
@@ -169,8 +209,9 @@ def device_ms(torch, fn, reps, restore=None):
     return total / reps
 
 
-def run_one(tree: str, reps: int) -> dict:
-    """Time the kernels of `tree`'s package in this process."""
+def run_one(tree: str, reps: int, chunk_file: str) -> dict:
+    """Time the kernels of `tree`'s package in this process; `chunk_file`
+    holds PROG_CHUNK's images (pickled bytes)."""
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
     import torch
@@ -381,6 +422,66 @@ def run_one(tree: str, reps: int) -> dict:
         if serr.any():
             raise RuntimeError(f"{kernel[step.kind]}: error bits on a clean stream")
     digests["progressive_state"] = _digest(acs + dcs)
+    del acs, dcs
+
+    # Kernels 7-9 on PROG_CHUNK: every scan as one-image launches into
+    # slices of one 32-image state (/chunk_images) and, where this tree's
+    # planner groups the 32, as one launch (/chunk); kernel 9 from the
+    # scan's own input state each time.
+    with open(chunk_file, "rb") as f:
+        cdatas = pickle.load(f)
+    chunk = [tpujpeg_torch.bitstream.parse(d) for d in cdatas]
+    single = [wp.plan_scans([j]) for j in chunk]
+    try:
+        merged = wp.plan_scans(chunk)
+    except tpujpeg_torch.JpegUnsupportedError:
+        merged = None  # a planner that keys groups by the tables' bytes
+    states = {}
+    for mode in ("chunk_images", "chunk") if merged is not None else ("chunk_images",):
+        acs, dcs = wp.new_state(chunk[0].frame, len(chunk), dev)
+        for k, scan in enumerate(chunk[0].scans):
+            if mode == "chunk":
+                parts = [(merged[k], acs, dcs)]
+            else:
+                parts = [(single[i][k], [a[i:i + 1] for a in acs], [d[i:i + 1] for d in dcs])
+                         for i in range(len(chunk))]
+            if wp.scan_kind(scan) == "dc_refine":
+                for step, a, d in parts:
+                    wp.apply_step(step, a, d)
+                continue
+            name = kernel[wp.scan_kind(scan)]
+            launches, errs = [], []
+            for step, a, d in parts:
+                step = step.to(dev)
+                e = torch.zeros(step.n_lanes, dtype=torch.int32, device=dev)
+                errs.append(e)
+                launches.append({"dc_first": lambda step=step, d=d, e=e: wp.dc_first(step, d, e),
+                                 "ac_first": lambda step=step, a=a, e=e: wp.ac_first(
+                                     step, a[step.comp_indices[0]], e),
+                                 "ac_refine": lambda step=step, a=a, e=e: wp.ac_refine(
+                                     step, a[step.comp_indices[0]], e)}[step.kind])
+            target = dcs if scan.ss == 0 else [acs[scan.comp_indices[0]]]
+            before = [t.clone() for t in target]
+
+            def restore():
+                for t, b in zip(target, before):
+                    t.copy_(b)
+
+            timed(f"{name}/{mode}", lambda: [launch() for launch in launches],
+                  restore if name == "prog_ac_refine" else None)
+            restore()
+            for launch in launches:
+                launch()
+            if any(bool(e.any()) for e in errs):
+                raise RuntimeError(f"{name}/{mode}: error bits on a clean stream")
+        states[mode] = _digest(acs + dcs)
+        del acs, dcs
+    if merged is not None and states["chunk"] != states["chunk_images"]:
+        raise RuntimeError("the chunk's one launch per scan differs from its one-image launches")
+    digests["progressive_state/chunk_images"] = states["chunk_images"]
+    bound_ms["prog_ac_refine/chunk"] = kernel_9_bound_ms(cdatas)
+    occupancy["prog_chunk"] = {"images": len(chunk), "table_sets": [
+        st.n_sets for st in (merged or []) if isinstance(st, wp.ScanPlan)]}
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     ms.update(scan_ms)
     return dict(tree=tree, ms=ms, ms_wrapper=ms_wrapper, digests=digests, occupancy=occupancy,
@@ -402,17 +503,23 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--out", default=None, help="write every line here too")
     ap.add_argument("--one", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--chunk-file", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one:
-        print(json.dumps(run_one(args.one, args.reps)), flush=True)
+        print(json.dumps(run_one(args.one, args.reps, args.chunk_file)), flush=True)
         return 0
 
     trees = args.tree or [os.path.dirname(os.path.dirname(HERE))]
     order = [int(i) for i in args.order.split(",")] if args.order else list(range(len(trees)))
     lines, runs, failed = [], [], []
+    scratch = tempfile.TemporaryDirectory()
+    chunk_file = os.path.join(scratch.name, "prog_chunk.pkl")
+    with open(chunk_file, "wb") as f:
+        pickle.dump(prog_chunk(), f)
     for i in order:
         res = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", trees[i],
-                              "--reps", str(args.reps)], capture_output=True, text=True)
+                              "--reps", str(args.reps), "--chunk-file", chunk_file],
+                             capture_output=True, text=True)
         if res.returncode != 0:
             # Go on with the other trees; the exit code says it failed.
             print(f"{trees[i]} failed:", res.stdout[-4000:], res.stderr[-4000:], file=sys.stderr)
